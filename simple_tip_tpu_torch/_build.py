@@ -1,0 +1,123 @@
+"""Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them with ctypes.
+
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface. Nothing includes PyTorch's headers, so a
+build takes seconds. The library lands in ``.torch_kernels/<hash>/`` at the
+root of the checkout (listed in ``.gitignore``), keyed by a hash of the
+sources, and is built at first use: importing this module builds nothing.
+``-Xptxas -v`` reports (registers, shared memory, spills) are kept in
+``build.log`` beside the library.
+"""
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), ".torch_kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    """Where the library for the current sources lives (built or not)."""
+    return os.path.join(BUILD_ROOT, _digest(_sources()), "libtip_kernels.so")
+
+
+def build() -> str:
+    """Compile and link the kernels unless the library for these sources exists."""
+    sources = _sources()
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    out_dir = os.path.dirname(out)
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        procs = []
+        for src in sources:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs = []
+        failed = []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {os.path.basename(src)} (rc {proc.returncode})\n{text}")
+            if proc.returncode != 0:
+                failed.append(src)
+        log = "\n".join(logs)
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+        staged = os.path.join(tmp, "libtip_kernels.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", staged, *[obj for _, obj, _ in procs]],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}{link.stderr}")
+        os.replace(staged, out)
+    return out
+
+
+def build_log() -> str:
+    """The compiler's report of the last build of the current sources."""
+    path = os.path.join(os.path.dirname(library_path()), "build.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every C function's signature declared."""
+    lib = ctypes.CDLL(build())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tip_mnist_forward.restype = i
+    lib.tip_mnist_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+    lib.tip_dsa_nearest.restype = i
+    lib.tip_dsa_nearest.argtypes = [p, p, p, i, p, p, p, i, i, i, i, p, p, p, p, p]
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

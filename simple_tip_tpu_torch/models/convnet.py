@@ -1,0 +1,85 @@
+"""``MnistConvNet`` as a torch module, with the JAX package's layouts.
+
+Conv 32 3x3 relu -> MaxPool 2x2 -> Conv 64 3x3 relu -> MaxPool 2x2 ->
+Flatten -> Dropout 0.5 -> Dense 10 softmax, as ``models/convnet.py`` of the
+JAX package. Inputs are NHWC ``[B, 28, 28, 1]``; the convolutions run NCHW
+inside, and every tap is returned NHWC under its Keras layer index
+(``{0..6: tensor}``). The flatten before the dense layer is NHWC too, so the
+dense kernel's rows and the neuron order of the coverage profiles and the SA
+features match the reference.
+
+Dropout is active only with ``train=True`` and draws from an explicit
+``torch.Generator`` (flax semantics: keep with probability ``1 - rate`` and
+scale kept values by ``1 / (1 - rate)``).
+"""
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Flax ``nn.Dropout`` with an explicit generator."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+class MnistConvNet(nn.Module):
+    """LeNet-style convnet for MNIST/FMNIST; taps 0-3 are conv/pool outputs."""
+
+    has_dropout = True
+    sa_layers = (3,)
+    nc_layers = (0, 1, 2, 3)
+    all_layers = (0, 1, 2, 3, 4, 5, 6)
+
+    def __init__(self, num_classes: int = 10, dropout_rate: float = 0.5):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dropout_rate = dropout_rate
+        self.conv1 = nn.Conv2d(1, 32, 3)
+        self.conv2 = nn.Conv2d(32, 64, 3)
+        self.dense = nn.Linear(1600, num_classes)
+
+    def features(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """Taps 0-4 (NHWC) of the deterministic trunk before dropout."""
+        h = x.permute(0, 3, 1, 2)
+        taps: Dict[int, torch.Tensor] = {}
+        h = F.relu(self.conv1(h))
+        taps[0] = h.permute(0, 2, 3, 1)
+        h = F.max_pool2d(h, 2)
+        taps[1] = h.permute(0, 2, 3, 1)
+        h = F.relu(self.conv2(h))
+        taps[2] = h.permute(0, 2, 3, 1)
+        h = F.max_pool2d(h, 2)
+        taps[3] = h.permute(0, 2, 3, 1)
+        taps[4] = taps[3].reshape(h.shape[0], -1)
+        return taps
+
+    def head(
+        self,
+        flat: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(dropout output, probabilities) from the NHWC-flattened features."""
+        if train:
+            if generator is None:
+                raise ValueError("train=True needs an explicit torch.Generator")
+            flat = dropout(flat, self.dropout_rate, generator)
+        probs = torch.softmax(self.dense(flat), dim=-1)
+        return flat, probs
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+        """``(probs, taps)`` for NHWC input ``x``."""
+        taps = self.features(x)
+        taps[5], probs = self.head(taps[4], train=train, generator=generator)
+        taps[6] = probs
+        return probs, taps

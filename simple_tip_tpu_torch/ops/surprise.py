@@ -1,0 +1,135 @@
+"""Distance-based surprise adequacy (DSA) and surprise-coverage profiles.
+
+Counterpart of ``DSA`` and ``SurpriseCoverageMapper`` of the JAX package's
+``ops/surprise.py``: DSA is the distance of a test activation trace to its
+nearest same-class training trace, over the distance from that training
+trace to its nearest other-class training trace (classes by the TEST
+sample's predicted label in both). Both nearest-neighbour searches go
+through ``ops/dsa_cuda.masked_nearest``: the CUDA kernel on the card, the
+chunked plain formulation on the CPU. The training subsample is the same
+seeded numpy draw as the JAX package's, so the same rows are kept.
+"""
+
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from simple_tip_tpu_torch.ops.dsa_cuda import masked_nearest
+
+Activations = Union[Sequence[torch.Tensor], torch.Tensor]
+
+
+def _resolve_subsample_count(subsampling, population: int) -> Optional[int]:
+    """How many samples a ``subsampling`` spec keeps (None: all). A float in
+    (0, 1) is a share, a positive int an absolute cap."""
+    if subsampling is None or subsampling == 1.0:
+        return None
+    if isinstance(subsampling, int) and subsampling > 0:
+        return min(subsampling, population)
+    if 0 < subsampling < 1:
+        return int(subsampling * population)
+    raise ValueError(
+        "subsampling must be a float between 0 and 1 (share of training "
+        "data), or a positive int declaring the number of samples"
+    )
+
+
+def subsample_indices(subsampling, population: int, seed: int) -> Optional[np.ndarray]:
+    """The JAX package's seeded draw (``_subsample_arrays``), or None for all."""
+    keep = _resolve_subsample_count(subsampling, population)
+    if keep is None:
+        return None
+    return np.random.RandomState(seed).choice(population, keep, replace=False)
+
+
+def _class_predictions(predictions) -> np.ndarray:
+    """Validate and convert class predictions to a 1-D int64 array."""
+    if isinstance(predictions, torch.Tensor):
+        predictions = predictions.cpu().numpy()
+    predictions = np.asarray(predictions)
+    if predictions.ndim != 1:
+        raise ValueError(
+            "Class predictions must be one-dimensional. If your predictions "
+            "are one_hot encoded, use eg `np.argmax(softmax_outputs, axis=1)`"
+        )
+    if not np.issubdtype(predictions.dtype, np.integer):
+        truncated = predictions.astype(np.int64)
+        if float(np.abs(predictions - truncated).max(initial=0.0)) >= 1.5e-5:
+            raise ValueError("Predictions must be integers")
+        predictions = truncated
+    if predictions.size and int(predictions.min()) < 0:
+        raise ValueError("Class predictions must be >= 0")
+    return predictions.astype(np.int64)
+
+
+def _flatten_layers(layers: Activations) -> torch.Tensor:
+    """Per-layer activations (or one high-rank tensor) as (samples, neurons)."""
+    if isinstance(layers, torch.Tensor):
+        return layers.reshape(layers.shape[0], -1)
+    return torch.cat([layer.reshape(layer.shape[0], -1) for layer in layers], dim=1)
+
+
+class SurpriseCoverageMapper:
+    """SA values -> boolean bucket profiles (host numpy, float64 edges)."""
+
+    def __init__(self, sections: int, upper_bound: float):
+        self.sections = sections
+        self.thresholds = np.linspace(
+            start=0, stop=upper_bound, num=sections + 1, dtype=np.float64
+        )
+
+    def get_coverage_profile(self, surprise_values: np.ndarray) -> np.ndarray:
+        """Map SA values to (samples, sections) boolean bucket membership."""
+        surprise_values = np.asarray(surprise_values)
+        res = np.zeros(shape=(surprise_values.shape[0], self.sections), dtype=bool)
+        for i in range(self.sections):
+            res[..., i] = np.logical_and(
+                self.thresholds[i] <= surprise_values,
+                surprise_values < self.thresholds[i + 1],
+            )
+        return res
+
+
+class DSA:
+    """Distance-based surprise adequacy over training traces on one device.
+
+    ``activations`` are the training traces (tensors on the scoring device),
+    ``predictions`` their predicted classes.
+    """
+
+    def __init__(
+        self,
+        activations: Activations,
+        predictions,
+        subsampling=1.0,
+        subsampling_seed: int = 0,
+    ):
+        train = _flatten_layers(activations).float()
+        labels = _class_predictions(predictions)
+        chosen = subsample_indices(subsampling, train.shape[0], subsampling_seed)
+        if chosen is not None:
+            train = train[torch.as_tensor(chosen, device=train.device)]
+            labels = labels[chosen]
+        self.train = train.contiguous()
+        self.train_sq = (self.train * self.train).sum(dim=1)
+        self.train_labels = torch.as_tensor(labels, dtype=torch.int32, device=train.device)
+
+    def nearest(self, x: torch.Tensor, labels: torch.Tensor, want_same: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(min d2, argmin) of ``x`` against the class-masked training rows."""
+        return masked_nearest(
+            x, labels, self.train, self.train_sq, self.train_labels, want_same
+        )
+
+    def __call__(self, activations: Activations, predictions) -> np.ndarray:
+        """DSA of each test trace (float64, like the JAX package's)."""
+        x = _flatten_layers(activations).float().contiguous()
+        labels = torch.as_tensor(
+            _class_predictions(predictions), dtype=torch.int32, device=x.device
+        )
+        a2, a_idx = self.nearest(x, labels, want_same=True)
+        closest = self.train.index_select(0, a_idx.long())
+        b2, _ = self.nearest(closest, labels, want_same=False)
+        dsa = torch.sqrt(a2) / torch.sqrt(b2)
+        return dsa.cpu().numpy().astype(np.float64)
+

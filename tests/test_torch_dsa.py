@@ -1,0 +1,76 @@
+"""Port parity for kernel B2 (DSA's masked nearest neighbour) and for DSA.
+
+On the CPU the port's DSA runs the kernel's plain version; it is held
+against the JAX package's ``DSA`` on its XLA path (``use_pallas=False``)
+and against ``PallasDSABackend.score(..., interpret=True)`` with CHUNK and
+TILE shrunk so that several tiles accumulate, at rtol 1e-4, including
+classes that the 30% training subsample misses (DSA = inf there on both
+sides). The CUDA kernel is held against the plain version on the card in
+``test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from simple_tip_tpu.ops import dsa_pallas
+from simple_tip_tpu.ops.surprise import DSA as JaxDSA
+from simple_tip_tpu_torch.ops import dsa_cuda
+from simple_tip_tpu_torch.ops.surprise import DSA, subsample_indices
+
+
+def _data(seed: int = 0):
+    rng = np.random.RandomState(seed)
+    acts = rng.random((384, 32)).astype(np.float32)
+    labels = rng.randint(0, 4, size=384)
+    kept = subsample_indices(0.3, 384, 0)
+    missed = np.setdiff1d(np.arange(384), kept)[:2]
+    labels[missed] = 4  # a class that the 30% subsample misses
+    test = rng.random((200, 32)).astype(np.float32)
+    tlabels = rng.randint(0, 5, size=200)
+    return acts, labels, test, tlabels
+
+
+@pytest.mark.parametrize("subsampling", [1.0, 0.3])
+def test_plain_dsa_matches_jax_xla_path(subsampling):
+    acts, labels, test, tlabels = _data()
+    ref = JaxDSA(acts, labels, subsampling=subsampling)
+    ref.use_pallas = False
+    want = ref(test, tlabels)
+    got = DSA(torch.from_numpy(acts), labels, subsampling=subsampling)(
+        torch.from_numpy(test), tlabels
+    )
+    assert got.dtype == np.float64 == want.dtype
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    if subsampling < 1:
+        kept = labels[subsample_indices(subsampling, len(labels), 0)]
+        assert 4 not in kept and np.isinf(got[tlabels == 4]).all()
+
+
+def test_plain_dsa_matches_pallas_interpret(monkeypatch):
+    monkeypatch.setattr(dsa_pallas, "CHUNK", 128)
+    monkeypatch.setattr(dsa_pallas, "TILE", 128)
+    acts, labels, test, tlabels = _data(1)
+    ref = JaxDSA(acts, labels, subsampling=0.3)
+    backend = dsa_pallas.PallasDSABackend(ref.train_activations, ref.train_predictions)
+    want = backend.score(test, tlabels, interpret=True)
+    port = DSA(torch.from_numpy(acts), labels, subsampling=0.3)
+    np.testing.assert_array_equal(port.train.numpy(), ref.train_activations)
+    got = port(torch.from_numpy(test), tlabels)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_plain_nearest_ties_and_masked_rows():
+    train = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 0.0], [5.0, 5.0]])
+    train_sq = (train * train).sum(1)
+    train_labels = torch.tensor([0, 0, 0, 1], dtype=torch.int32)
+    x = torch.tensor([[1.0, 0.0], [0.0, 0.0]])
+    labels = torch.tensor([0, 7], dtype=torch.int32)
+    d2, idx = dsa_cuda.masked_nearest(x, labels, train, train_sq, train_labels, True)
+    assert idx.dtype == torch.int32
+    assert idx.tolist() == [0, 0]  # tie between rows 0 and 2 -> 0; all masked -> 0
+    assert d2[0].item() == 0.0 and torch.isinf(d2[1])
+    d2, idx = dsa_cuda.masked_nearest(x, labels, train, train_sq, train_labels, False)
+    assert idx.tolist() == [3, 0]
+

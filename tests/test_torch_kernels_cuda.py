@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA card and skips without one (decided inside
+the fixture, never at import). The file imports neither jax nor the JAX
+package, so it runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from simple_tip_tpu_torch.bridge import glorot_params, params_from_jax
+from simple_tip_tpu_torch.ops import dsa_cuda, fused_forward
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip where none is visible."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from simple_tip_tpu_torch.device import resolve
+
+    return resolve(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 300, 1000])
+def test_fused_forward_kernel_matches_plain(cuda_device, batch):
+    fused = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(3))["fused"].items()}
+    x = np.random.default_rng(batch).uniform(0, 1, size=(batch, 28, 28, 1)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
+    before = fused_forward.LAUNCHES
+    got = fused_forward.fused_mnist_probs(fused, x)
+    torch.cuda.synchronize()
+    assert fused_forward.LAUNCHES == before + 1
+    want = fused_forward.fused_mnist_probs_plain(fused, x)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_query,n_train,dim", [(200, 384, 32), (70, 129, 1601)])
+def test_dsa_nearest_kernel_matches_plain(cuda_device, n_query, n_train, dim):
+    rng = np.random.default_rng(dim)
+    train = torch.from_numpy(rng.random((n_train, dim), dtype=np.float32)).to(cuda_device)
+    train[5] = train[3]  # exact duplicate rows: ties go to the lower index
+    labels = rng.integers(0, 4, size=n_train)
+    x = torch.from_numpy(rng.random((n_query, dim), dtype=np.float32)).to(cuda_device)
+    x[0] = train[3]
+    x_labels = rng.integers(0, 5, size=n_query)  # class 4 has no training rows
+    x_labels[0] = labels[3] = labels[5] = 1
+    args = (
+        x,
+        torch.as_tensor(x_labels, dtype=torch.int32, device=cuda_device),
+        train,
+        (train * train).sum(1),
+        torch.as_tensor(labels, dtype=torch.int32, device=cuda_device),
+    )
+    for want_same in (True, False):
+        before = dsa_cuda.LAUNCHES
+        got_min, got_arg = dsa_cuda.masked_nearest(*args, want_same)
+        torch.cuda.synchronize()
+        assert dsa_cuda.LAUNCHES == before + 1
+        want_min, want_arg = dsa_cuda.masked_nearest_plain(*args, want_same)
+        torch.testing.assert_close(got_min, want_min, rtol=1e-4, atol=1e-4)
+        assert torch.equal(got_arg, want_arg)
+    masked = args[1] == 4
+    got_min, got_arg = dsa_cuda.masked_nearest(*args, True)
+    assert torch.isinf(got_min[masked]).all() and (got_arg[masked] == 0).all()
+    assert int(dsa_cuda.masked_nearest(*args, True)[1][0]) == 3
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    fused = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(0))["fused"].items()}
+    with pytest.raises(ValueError):
+        fused_forward.fused_mnist_probs(fused, torch.zeros(2, 28, 28, 3, device=cuda_device))
+    x = torch.zeros(4, 8, device=cuda_device)
+    lab = torch.zeros(4, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        dsa_cuda.masked_nearest(x, lab, x, x.sum(1), lab, True)
