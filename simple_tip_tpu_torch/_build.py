@@ -109,11 +109,15 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library with every C function's signature declared."""
     lib = ctypes.CDLL(build())
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tip_mnist_forward.restype = i
     lib.tip_mnist_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+    lib.tip_cifar10_forward.restype = i
+    lib.tip_cifar10_forward.argtypes = [p] * 12 + [i, i, p]
     lib.tip_dsa_nearest.restype = i
     lib.tip_dsa_nearest.argtypes = [p, p, p, i, p, p, p, i, i, i, i, p, p, p, p, p]
+    lib.tip_flash_attention_fwd.restype = i
+    lib.tip_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
     return lib
 
 

@@ -13,7 +13,7 @@ import os
 import pickle
 import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -69,15 +69,19 @@ def evaluate(
     ood_test_labels: np.ndarray,
     nc_activation_layers: List,
     sa_activation_layers: List[int],
+    dsa_badge_size: Optional[int] = None,
     batch_size: int = 32,
     device: DeviceLike = None,
 ) -> Dict[str, float]:
     """Run the test-prioritization experiments for one model.
 
-    ``model_def`` is an ``MnistConvNet`` and ``params`` the bridge's output
-    (``bridge.params_from_jax``). ``device=None`` runs on the card and
-    raises without one; ``device="cpu"`` runs the plain versions. Returns
-    the wall seconds of each phase.
+    ``model_def`` is one of the port's models (``MnistConvNet``,
+    ``Cifar10ConvNet``, ``ImdbTransformer``) and ``params`` the bridge's
+    output for it (``bridge.params_from_jax``). ``dsa_badge_size`` chunks
+    DSA's scoring and never changes a score. VR is written only for a model
+    with dropout. ``device=None`` runs on the card and raises without one;
+    ``device="cpu"`` runs the plain versions. Returns the wall seconds of
+    each phase.
     """
     device = resolve(device)
     phases = {}
@@ -112,6 +116,7 @@ def evaluate(
         nominal_test_dataset,
         ood_test_dataset,
         training_dataset,
+        dsa_badge_size,
         device,
     )
     phases["surprise"], start = _clock(device) - start, _clock(device)
@@ -172,10 +177,16 @@ def _eval_surprise(
     nominal_test_dataset,
     ood_test_dataset,
     training_dataset,
+    dsa_badge_size,
     device,
 ):
     sa_worker = SurpriseHandler(
-        model_def, params, sa_layers=layers, training_dataset=training_dataset, device=device
+        model_def,
+        params,
+        sa_layers=layers,
+        training_dataset=training_dataset,
+        device=device,
+        dsa_badge_size=dsa_badge_size,
     )
     results = sa_worker.evaluate_all(
         datasets={"nominal": nominal_test_dataset, "ood": ood_test_dataset}

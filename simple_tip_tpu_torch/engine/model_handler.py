@@ -1,8 +1,9 @@
 """Model-centric utilities: predictions + uncertainties, activation walking.
 
 Counterpart of the JAX package's ``engine/model_handler.py`` ``BaseModel``.
-A model is ``(model_def, params)``: ``model_def`` an ``MnistConvNet``
-instance (its own weights are not used) and ``params`` the bridge's
+A model is ``(model_def, params)``: ``model_def`` an instance of one of the
+port's models (``MnistConvNet``, ``Cifar10ConvNet``, ``ImdbTransformer``;
+its own weights are not used) and ``params`` the bridge's
 ``{"module": state_dict, "fused": kernel operands}``. Timing keeps the
 reference's record semantics: per quantifier ``[setup, pred, quant, cam]``
 with the prediction time measured once and shared; timers synchronise the
@@ -59,11 +60,11 @@ class BaseModel:
 
         Returns ``(pred, {name: uncertainty}, {name: [setup, pred, quant,
         cam]})`` with names matching the artifact contract: softmax, pcs,
-        softmax_entropy, deep_gini and VR (the model has dropout). ``seed``
-        seeds the MC-dropout generator.
+        softmax_entropy, deep_gini, and VR when the model has dropout.
+        ``seed`` seeds the MC-dropout generator.
         """
         with Timer(device=self.device) as pred_timer:
-            probs = predict(self.fused, x, self.device)
+            probs = predict(self.net, self.fused, x, self.device)
         pred_time = pred_timer.get()
 
         uncertainties: Dict[str, np.ndarray] = {}
@@ -94,6 +95,10 @@ class BaseModel:
                 vr = 1.0 - majority_count / DROPOUT_SAMPLE_SIZE
             uncertainties["VR"] = vr
             times["VR"] = [0, sampling_timer.get(), quant_timer.get(), 0]
+        else:
+            logger.warning(
+                "No stochastic layers found in model. Skipping stochastic quantifiers."
+            )
         return pred, uncertainties, times
 
     def _layer_ids(self) -> List[int]:

@@ -3,7 +3,8 @@ set, and derive the surprise-coverage CAM order.
 
 Counterpart of the JAX package's ``engine/surprise_handler.py`` flow
 (``evaluate_all``: fit -> score -> SC-CAM per dataset) with the registry
-limited to DSA at 30% subsampling; the four other variants (pc-lsa,
+limited to DSA at 30% subsampling (``dsa_badge_size`` chunks its scoring,
+as in the JAX package); the four other variants (pc-lsa,
 pc-mdsa, pc-mlsa, pc-mmdsa) are not ported yet. Train traces and
 predictions come from one forward pass over ``sa_layers`` plus the output;
 the time record is ``[setup, pred, quant, cam]`` with setup including the
@@ -12,7 +13,7 @@ score.
 """
 
 import logging
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +29,7 @@ logger = logging.getLogger(__name__)
 NUM_SC_BUCKETS = 1000
 
 SA_VARIANTS: Dict[str, Callable] = {
-    "dsa": lambda ats, preds: DSA(ats, preds, subsampling=0.3),
+    "dsa": lambda ats, preds, badge: DSA(ats, preds, subsampling=0.3, badge_size=badge),
 }
 
 DatasetResult = Tuple[np.ndarray, np.ndarray, List[float]]
@@ -54,8 +55,10 @@ class SurpriseHandler:
         training_dataset: np.ndarray,
         batch_size: int = 1024,
         device: DeviceLike = None,
+        dsa_badge_size: Optional[int] = None,
     ):
         self.sa_layers = list(sa_layers)
+        self.dsa_badge_size = dsa_badge_size
         self.training_dataset = training_dataset
         self.base_model = BaseModel(
             model_def,
@@ -88,7 +91,7 @@ class SurpriseHandler:
         for sa_name, constructor in SA_VARIANTS.items():
             logger.info("fitting %s", sa_name)
             with Timer(device=self.device) as fit_timer:
-                scorer = constructor(train_ats, train_pred)
+                scorer = constructor(train_ats, train_pred, self.dsa_badge_size)
             setup_s = train_at_timer.get() + fit_timer.get()
             per_ds: Dict[str, DatasetResult] = {}
             for ds_name, (ats, preds, pred_s) in traces.items():

@@ -1,18 +1,25 @@
-"""Fused MNIST forward: the CUDA kernel, its plain PyTorch version, its counter.
+"""Fused convnet forwards: the CUDA kernels, their plain versions, their counters.
 
-Replaces the Pallas TPU kernel ``simple_tip_tpu/ops/fused_forward.py``
-``_mnist_kernel`` (entry ``fused_mnist_probs``): the whole inference forward
-of ``MnistConvNet`` (conv1 + relu, pool, conv2 + relu, floor pool, dense,
-softmax) from NHWC images to probabilities, float32.
+Two Pallas TPU kernels of ``simple_tip_tpu/ops/fused_forward.py`` compute a
+whole inference forward from NHWC images to probabilities, float32:
 
-On this card the function is bound by operations (~2.4 M FMAs an image
-against 3.1 KB in and 40 B out). The kernel (``csrc/fused_mnist_forward.cu``)
-keeps every intermediate and all weights in shared memory, so device memory
-sees only images and probabilities; see the source for the design.
+- ``_mnist_kernel`` (entry ``fused_mnist_probs``), ``MnistConvNet``: conv1 +
+  relu, pool, conv2 + relu, floor pool, dense, softmax. Replaced by
+  ``csrc/fused_mnist_forward.cu``; ~2.4 M FMAs an image against 3.1 KB in
+  and 40 B out. The kernel keeps every intermediate and all weights in
+  shared memory.
+- ``_cifar_kernel`` (entry ``fused_cifar10_probs``), ``Cifar10ConvNet``:
+  three VALID 3x3 convs with relu, floor pools 30 -> 15 and 13 -> 6, dense
+  1024 -> 64 relu, dense 64 -> 10, softmax. Replaced by
+  ``csrc/fused_cifar10_forward.cu``; ~4.1 M FMAs (at the positions the pools
+  keep) against 12 KB in and 40 B out. Its 489 KB of weights do not fit a
+  block's shared memory, so the kernel stages one layer's weights at a time
+  for a tile of images.
 
-``fused_mnist_probs`` launches the kernel for CUDA tensors and runs
-``fused_mnist_probs_plain`` for CPU tensors. ``LAUNCHES`` counts kernel
-launches and nothing else.
+Both are bound by operations on this card; see the sources for the designs.
+``fused_mnist_probs`` and ``fused_cifar10_probs`` launch their kernel for
+CUDA tensors and run the plain version for CPU tensors. ``LAUNCHES`` and
+``CIFAR_LAUNCHES`` count kernel launches and nothing else.
 """
 
 from typing import Dict
@@ -22,8 +29,12 @@ import torch
 from simple_tip_tpu_torch import _build
 
 LAUNCHES = 0
-# Blocks per SM: ~170 KB of shared memory a block leaves room for one.
+CIFAR_LAUNCHES = 0
+# Blocks per SM: the shared memory a block of either kernel takes leaves
+# room for one.
 _BLOCKS_PER_SM = 1
+_CIFAR_TILE = 4  # images per pass of the CIFAR-10 kernel
+_CIFAR_OPS = ("w1", "b1", "w2", "b2", "w3", "b3", "wd1", "bd1", "wd2", "bd2")
 
 
 def fused_mnist_probs_plain(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -89,3 +100,75 @@ def fused_mnist_probs(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return fused_mnist_probs_plain(fused, x)
+
+
+def _im2col_conv(h: torch.Tensor, w: torch.Tensor, out_hw: int) -> torch.Tensor:
+    """VALID 3x3 conv as one matmul ``[B*out^2, 9*C_in] @ [9*C_in, C_out]``,
+    patches in ``(dy, dx, c)`` order (the TPU kernel's ``_im2col_conv``)."""
+    b = h.shape[0]
+    patches = torch.cat(
+        [h[:, dy : dy + out_hw, dx : dx + out_hw, :] for dy in range(3) for dx in range(3)],
+        dim=-1,
+    )
+    return (patches.reshape(b * out_hw * out_hw, -1) @ w).reshape(b, out_hw, out_hw, -1)
+
+
+def _pool2(h: torch.Tensor, out_hw: int) -> torch.Tensor:
+    """2x2 stride-2 max pool with floor semantics."""
+    b, c = h.shape[0], h.shape[3]
+    return h[:, : 2 * out_hw, : 2 * out_hw, :].reshape(b, out_hw, 2, out_hw, 2, c).amax(dim=(2, 4))
+
+
+def fused_cifar10_probs_plain(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The CIFAR-10 kernel's function in plain PyTorch, in the Pallas
+    kernel's steps: three im2col convs with relu, floor pools 30 -> 15 and
+    13 -> 6, NHWC flatten to 1024, dense 64 relu, dense 10, softmax."""
+    b = x.shape[0]
+    h = torch.relu(_im2col_conv(x, fused["w1"], 30) + fused["b1"])
+    h = _pool2(h, 15)
+    h = torch.relu(_im2col_conv(h, fused["w2"], 13) + fused["b2"])
+    h = _pool2(h, 6)
+    h = torch.relu(_im2col_conv(h, fused["w3"], 4) + fused["b3"])
+    hd = torch.relu(h.reshape(b, 1024) @ fused["wd1"] + fused["bd1"])
+    return torch.softmax(hd @ fused["wd2"] + fused["bd2"], dim=-1)
+
+
+def _launch_cifar10(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    global CIFAR_LAUNCHES
+    ops = [fused[k] for k in _CIFAR_OPS]
+    for t in [x, *ops]:
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("fused forward takes contiguous float32 tensors on one card")
+        if t.data_ptr() % 16:
+            raise ValueError("the CIFAR-10 fused forward reads 16-byte aligned tensors")
+    if tuple(x.shape[1:]) != (32, 32, 3):
+        raise ValueError(f"fused forward takes NHWC [B, 32, 32, 3], got {tuple(x.shape)}")
+    b = x.shape[0]
+    out = torch.empty(b, 10, dtype=torch.float32, device=x.device)
+    if b == 0:
+        return out
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = min(-(-b // _CIFAR_TILE), sms * _BLOCKS_PER_SM)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tip_cifar10_forward(
+            x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), b, grid, stream
+        )
+    _build.check(err, "tip_cifar10_forward")
+    CIFAR_LAUNCHES += 1
+    return out
+
+
+def fused_cifar10_probs(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Softmax probabilities ``[B, 10]`` for NHWC CIFAR-10 images ``x``.
+
+    ``fused`` holds the bridge's kernel operands on ``x``'s device. CUDA
+    tensors go through the kernel (or raise); CPU tensors through the plain
+    version.
+    """
+    if x.device.type == "cuda":
+        return _launch_cifar10(fused, x)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return fused_cifar10_probs_plain(fused, x)

@@ -56,7 +56,7 @@ def test_plain_dsa_matches_pallas_interpret(monkeypatch):
     backend = dsa_pallas.PallasDSABackend(ref.train_activations, ref.train_predictions)
     want = backend.score(test, tlabels, interpret=True)
     port = DSA(torch.from_numpy(acts), labels, subsampling=0.3)
-    np.testing.assert_array_equal(port.train.numpy(), ref.train_activations)
+    np.testing.assert_array_equal(port.rows.numpy(), ref.train_activations - port.mean.numpy())
     got = port(torch.from_numpy(test), tlabels)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
@@ -74,3 +74,24 @@ def test_plain_nearest_ties_and_masked_rows():
     d2, idx = dsa_cuda.masked_nearest(x, labels, train, train_sq, train_labels, False)
     assert idx.tolist() == [3, 0]
 
+
+
+def test_centred_searches_stay_accurate_far_from_the_origin():
+    """Traces with a large common offset: the port centres them before the
+    float32 d^2 expansion, so DSA agrees with a float64 DSA to rtol 1e-5
+    (the uncentred expansion cancels to ~1e-2 here)."""
+    rng = np.random.default_rng(3)
+    offset = rng.uniform(5, 10, size=20)
+    acts = (offset + rng.normal(0, 0.05, size=(300, 20))).astype(np.float32)
+    labels = rng.integers(0, 3, size=300)
+    test = (offset + rng.normal(0, 0.05, size=(80, 20))).astype(np.float32)
+    tlabels = rng.integers(0, 3, size=80)
+    got = DSA(torch.from_numpy(acts), labels, badge_size=16)(torch.from_numpy(test), tlabels)
+    train, x = acts.astype(np.float64), test.astype(np.float64)
+    d2 = ((x[:, None] - train[None]) ** 2).sum(-1)
+    same = tlabels[:, None] == labels[None]
+    nearest = np.where(same, d2, np.inf).argmin(1)
+    a = np.sqrt(np.where(same, d2, np.inf).min(1))
+    d2b = ((train[nearest][:, None] - train[None]) ** 2).sum(-1)
+    b = np.sqrt(np.where(~same, d2b, np.inf).min(1))
+    np.testing.assert_allclose(got, a / b, rtol=1e-5, atol=0)

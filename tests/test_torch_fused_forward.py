@@ -15,6 +15,7 @@ import torch
 from simple_tip_tpu.models import MnistConvNet as FlaxMnistConvNet
 from simple_tip_tpu.ops.fused_forward import fused_mnist_probs as pallas_fused_mnist_probs
 from simple_tip_tpu_torch.bridge import params_from_jax
+from simple_tip_tpu_torch.models import MnistConvNet
 from simple_tip_tpu_torch.models.predict import predict
 from simple_tip_tpu_torch.ops import fused_forward
 from test_torch_model import flax_params
@@ -44,7 +45,7 @@ def test_predict_batches_through_the_wrapper(monkeypatch):
     x = _inputs(7, 1)
     monkeypatch.setattr("simple_tip_tpu_torch.models.predict.PREDICT_BATCH", 3)
     fused = params_from_jax(params)["fused"]
-    got = predict(fused, x, torch.device("cpu")).numpy()
+    got = predict(MnistConvNet(), fused, x, torch.device("cpu")).numpy()
     want, _ = FlaxMnistConvNet().apply({"params": params}, jnp.asarray(x))
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
 

@@ -13,6 +13,7 @@ import torch
 
 from simple_tip_tpu_torch.bridge import glorot_params, params_from_jax
 from simple_tip_tpu_torch.ops import dsa_cuda, fused_forward
+from simple_tip_tpu_torch.ops import flash_attention as fa
 
 
 @pytest.fixture
@@ -72,6 +73,50 @@ def test_dsa_nearest_kernel_matches_plain(cuda_device, n_query, n_train, dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 5, 300, 1001])
+def test_cifar10_forward_kernel_matches_plain(cuda_device, batch):
+    params = params_from_jax(glorot_params(4, "cifar10"))["fused"]
+    fused = {k: v.to(cuda_device) for k, v in params.items()}
+    x = np.random.default_rng(batch).uniform(0, 1, size=(batch, 32, 32, 3)).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
+    before = fused_forward.CIFAR_LAUNCHES
+    got = fused_forward.fused_cifar10_probs(fused, x)
+    torch.cuda.synchronize()
+    assert fused_forward.CIFAR_LAUNCHES == before + 1
+    want = fused_forward.fused_cifar10_probs_plain(fused, x)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,t_kv",
+    [
+        ((2, 128, 4, 16), 128),
+        ((1, 100, 2, 32), 100),
+        ((2, 300, 2, 8), 300),
+        ((1, 17, 1, 4), 17),
+        ((1, 40, 2, 8), 200),
+        ((3, 65, 3, 5), 64),  # odd head dim, one ragged query tile
+        ((1, 70, 1, 128), 129),  # the widest head dim
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, t_kv):
+    rng = np.random.default_rng(shape[1])
+    b, t, h, dh = shape
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
+        for s in ((b, t, h, dh), (b, t_kv, h, dh), (b, t_kv, h, dh))
+    )
+    before = fa.LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want_out, want_lse = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     fused = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(0))["fused"].items()}
     with pytest.raises(ValueError):
@@ -80,3 +125,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     lab = torch.zeros(4, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):
         dsa_cuda.masked_nearest(x, lab, x, x.sum(1), lab, True)
+    cifar = {
+        k: v.to(cuda_device)
+        for k, v in params_from_jax(glorot_params(0, "cifar10"))["fused"].items()
+    }
+    misaligned = torch.zeros(2 * 3072 + 1, device=cuda_device)[1:].view(2, 32, 32, 3)
+    with pytest.raises(ValueError):
+        fused_forward.fused_cifar10_probs(cifar, misaligned)
+    wide = torch.zeros(1, 4, 1, 129, device=cuda_device)
+    with pytest.raises(ValueError):
+        fa.flash_attention(wide, wide, wide)

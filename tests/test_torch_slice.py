@@ -1,14 +1,17 @@
-"""The slice end to end: the JAX package's ``eval_prioritization.evaluate``
-(per-phase route) and the port's ``evaluate`` write into two temporary
-``TIP_ASSETS`` from the same seeded inputs and the same flax parameters.
+"""The slice end to end, per model family: the JAX package's
+``eval_prioritization.evaluate`` (per-phase route) and the port's
+``evaluate`` write into two temporary ``TIP_ASSETS`` from the same seeded
+inputs and the same flax parameters.
 
 Every artifact the port writes matches the JAX artifact of the same name:
 ``is_misclassified``, neuron-coverage scores and every CAM order (the
 surprise-coverage one included) byte-equal, with the same dtype and shape;
 the point uncertainties to atol 1e-5; DSA scores to rtol 1e-4. MC-dropout
 VR draws from torch's generator, so it is held by its dtype, shape and
-range only. The JAX side runs only its DSA variant (the port has no other
-SA variant yet), with its fit pool and caches off.
+range only; CIFAR-10 has no dropout and writes no VR on either side. The
+JAX side runs only its DSA variant (the port has no other SA variant yet),
+with its fit pool and caches off; the IMDB JAX model runs its default dense
+attention core.
 """
 
 import glob
@@ -21,21 +24,54 @@ import pytest
 from simple_tip_tpu.data import synthetic
 from simple_tip_tpu.engine import eval_prioritization as jax_eval
 from simple_tip_tpu.engine import surprise_handler as jax_surprise
+from simple_tip_tpu.models import Cifar10ConvNet as FlaxCifar10ConvNet
+from simple_tip_tpu.models import ImdbTransformer as FlaxImdbTransformer
 from simple_tip_tpu.models import MnistConvNet as FlaxMnistConvNet
 from simple_tip_tpu_torch.bridge import params_from_jax
 from simple_tip_tpu_torch.engine import eval_prioritization
-from simple_tip_tpu_torch.models import MnistConvNet
+from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
+from test_torch_cifar import cifar_flax_params
 from test_torch_model import flax_params
+from test_torch_transformer import imdb_flax_params
+
+# family: (flax model, port model, params, NC taps, SA taps, DSA badge,
+#          priority files, time records, VR upper bound)
+FAMILIES = {
+    # 2 datasets x (mask + 5 uncertainties + 12 x (scores, order) + dsa x 2)
+    "mnist": (FlaxMnistConvNet, MnistConvNet, lambda: flax_params(4), [0, 1, 2, 3], [3], None,
+              64, 2 * (5 + 12 + 1), 0.9),
+    # no VR: 4 uncertainties
+    "cifar10": (FlaxCifar10ConvNet, Cifar10ConvNet, lambda: cifar_flax_params(4), [0, 1, 2, 3],
+                [3], None, 62, 2 * (4 + 12 + 1), None),
+    "imdb": (FlaxImdbTransformer, ImdbTransformer, lambda: imdb_flax_params(4), [3, 5], [5], 20,
+             64, 2 * (5 + 12 + 1), 0.5),
+}
 
 
-@pytest.fixture(scope="module")
-def both_runs(tmp_path_factory):
+def _data(family: str):
+    """(train x, nominal x, nominal y, ood x) from the JAX package's generators."""
+    if family == "imdb":
+        (x_train, _), (x_test, y_test) = synthetic.token_classification(
+            seed=3, n_train=160, n_test=48
+        )
+        return x_train, x_test, y_test, synthetic.corrupt_tokens(x_test, seed=1)
+    shape = (28, 28, 1) if family == "mnist" else (32, 32, 3)
+    (x_train, _), (x_test, y_test) = synthetic.image_classification(
+        seed=3, n_train=160, n_test=48, shape=shape
+    )
+    noise = np.random.default_rng(1).normal(0, 0.3, x_test.shape).astype(np.float32)
+    return x_train, x_test, y_test, np.clip(x_test + noise, 0, 1)
+
+
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def both_runs(request, tmp_path_factory):
     """Artifact roots of one JAX run and one port run on the same inputs."""
     with pytest.MonkeyPatch.context() as monkeypatch:
-        yield _run_both(tmp_path_factory.mktemp("slice"), monkeypatch)
+        tmp = tmp_path_factory.mktemp(f"slice_{request.param}")
+        yield request.param, _run_both(request.param, tmp, monkeypatch)
 
 
-def _run_both(tmp_path, monkeypatch):
+def _run_both(family, tmp_path, monkeypatch):
     for var, value in (
         ("TIP_SA_POOL", "1"),
         ("TIP_SA_CACHE_DIR", "off"),
@@ -47,31 +83,29 @@ def _run_both(tmp_path, monkeypatch):
     monkeypatch.setattr(
         jax_surprise, "SA_VARIANTS", {"dsa": jax_surprise.SA_VARIANTS["dsa"]}
     )
-    (x_train, _), (x_test, y_test) = synthetic.image_classification(
-        seed=3, n_train=160, n_test=48, shape=(28, 28, 1)
-    )
-    noise = np.random.default_rng(1).normal(0, 0.3, x_test.shape).astype(np.float32)
-    x_ood = np.clip(x_test + noise, 0, 1)
-    params = flax_params(4)
+    flax_model, port_model, make_params, nc_layers, sa_layers, dsa_badge = FAMILIES[family][:6]
+    x_train, x_test, y_test, x_ood = _data(family)
+    params = make_params()
     kwargs = dict(
         model_id=0,
-        case_study="mnist",
+        case_study=family,
         training_dataset=x_train,
         nominal_test_dataset=x_test,
         nominal_test_labels=y_test,
         ood_test_dataset=x_ood,
         ood_test_labels=y_test,
-        nc_activation_layers=[0, 1, 2, 3],
-        sa_activation_layers=[3],
+        nc_activation_layers=nc_layers,
+        sa_activation_layers=sa_layers,
+        dsa_badge_size=dsa_badge,
         batch_size=128,
     )
     roots = {}
     monkeypatch.setenv("TIP_ASSETS", str(tmp_path / "jax"))
-    jax_eval.evaluate(model_def=FlaxMnistConvNet(), params=params, **kwargs)
+    jax_eval.evaluate(model_def=flax_model(), params=params, **kwargs)
     roots["jax"] = str(tmp_path / "jax")
     monkeypatch.setenv("TIP_ASSETS", str(tmp_path / "torch"))
     phases = eval_prioritization.evaluate(
-        model_def=MnistConvNet(), params=params_from_jax(params), device="cpu", **kwargs
+        model_def=port_model(), params=params_from_jax(params), device="cpu", **kwargs
     )
     roots["torch"] = str(tmp_path / "torch")
     return roots, phases
@@ -82,19 +116,20 @@ def _names(root: str, sub: str):
 
 
 def test_port_artifacts_equal_the_jax_artifacts(both_runs):
-    roots, phases = both_runs
+    family, (roots, phases) = both_runs
+    n_files, vr_max = FAMILIES[family][6], FAMILIES[family][8]
     assert sorted(phases) == ["fault_predictors", "neuron_coverage", "surprise"]
     names = _names(roots["torch"], "priorities")
-    # 2 datasets x (mask + 5 uncertainties + 12 x (scores, order) + dsa x 2)
-    assert len(names) == 64
+    assert len(names) == n_files
     assert set(names) <= set(_names(roots["jax"], "priorities"))
+    assert (vr_max is None) == (f"{family}_nominal_0_uncertainty_VR.npy" not in names)
     for name in names:
         got = np.load(os.path.join(roots["torch"], "priorities", name))
         want = np.load(os.path.join(roots["jax"], "priorities", name))
         assert got.dtype == want.dtype and got.shape == want.shape, name
         kind = name.split("_0_", 1)[1][: -len(".npy")]
         if kind == "uncertainty_VR":
-            assert got.min() >= 0 and got.max() <= 0.9, name
+            assert got.min() >= 0 and got.max() <= vr_max, name
         elif kind.startswith("uncertainty_"):
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=name)
         elif kind == "dsa_scores":
@@ -106,12 +141,11 @@ def test_port_artifacts_equal_the_jax_artifacts(both_runs):
 
 
 def test_port_time_records_follow_the_contract(both_runs):
-    roots, _ = both_runs
+    family, (roots, _) = both_runs
     names = _names(roots["torch"], "times")
     assert names == _names(roots["jax"], "times")
-    assert len(names) == 2 * (5 + 12 + 1)
+    assert len(names) == FAMILIES[family][7]
     for name in names:
         with open(os.path.join(roots["torch"], "times", name), "rb") as f:
             record = pickle.load(f)
         assert len(record) == 4 and all(float(v) >= 0 for v in record), name
-
