@@ -1,17 +1,30 @@
 """Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels, holds
-each against its plain PyTorch version, and runs the ``test_prio`` slice end
-to end for the three model families at full width and full dataset sizes.
+each against its plain PyTorch version, trains the three model families at
+full width through the port's ``CaseStudy.train``, and runs the
+``test_prio`` slice end to end on the trained checkpoints at full dataset
+sizes.
 
     python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
 
 Needs one CUDA card; exits non-zero without one (and without the
 ``simple_tip_tpu_torch`` package beside it). Phases:
 
-1. build the four kernels with ``nvcc`` for sm_90a (one process per source,
-   all started together; build seconds printed);
-2. per kernel, at its main path's shapes: max error against the plain
-   version, and the times of the kernel, the plain version and one library
-   call used as a yardstick only:
+1. build the five kernel sources with ``nvcc`` for sm_90a (one process per
+   source, all started together; build seconds printed);
+2. training (``casestudies.base.CaseStudy.train`` in a temp ``TIP_ASSETS``):
+   each family at full width on its full training set (MNIST 60,000,
+   CIFAR-10 50,000, IMDB 25,000) with the JAX registry's train configs
+   (batch 128 / 32 / 32, lr 1e-3, validation split 0.1), **epochs cut to 1**
+   (the registry trains 15 / 20 / 10); MNIST trains runs 0 and 1 (a
+   two-member ``train_ensemble``), CIFAR-10 and IMDB run 0. Per run: epoch
+   seconds and steps, first-step and mean epoch loss, accuracy on the
+   held-out 10% and on the nominal test set; checks: the mean loss is below
+   the first step's, accuracy clears its floor (``ACCURACY_FLOOR``), each
+   checkpoint reads back byte-equal; the IMDB epoch must launch B4, B5 and
+   B6 once a step (704 steps);
+3. per kernel, at its main path's shapes and on the trained weights: max
+   error against the plain version, and the times of the kernel, the plain
+   version and one library call used as a yardstick only:
    - B1 fused MNIST forward: max |dp| <= 1e-5 over 10,000 images (library:
      the module forward, cuDNN);
    - B2 DSA nearest, on each path's own DSA (its training subsample, its
@@ -26,24 +39,36 @@ Needs one CUDA card; exits non-zero without one (and without the
    - B4 flash attention: out and lse within atol 1e-5 + rtol 1e-5 on the
      q/k/v of a real IMDB forward over one prediction batch and on a ragged
      shape (T=300, dh=8) (library: ``scaled_dot_product_attention``);
-3. per path (MNIST 60,000 / 10,000 / 10,000; CIFAR-10 50,000 / 10,000 /
+   - B5 and B6 flash backward: dq, dk and dv within atol 1e-5 + rtol 1e-4
+     (atol cut to 1e-4 of the largest |want|, so that small gradients are
+     held too) on the q, k, v and dO (scaled to unit RMS) of a real IMDB
+     training step [32, 100, 2, 32], on
+     a ragged [4, 300, 2, 8] and at dh=128 [4, 200, 2, 128]; timed at the
+     training step and at [8192, 100, 2, 32] (library: the backward of
+     ``scaled_dot_product_attention``, dq, dk and dv together);
+   - the IMDB gradients through ``FlashAttention`` at full width (one batch
+     of 32, every parameter, ``train=False``) on the card against the CPU
+     within rtol 2e-4 / atol 2e-5 (atol cut per leaf to 2e-4 of its largest
+     |gradient| plus the f32 rounding floor), with non-zero q/k/v kernel
+     gradients;
+4. per path (MNIST 60,000 / 10,000 / 10,000; CIFAR-10 50,000 / 10,000 /
    10,000; IMDB 25,000 / 25,000 / 25,000 with ``dsa_badge_size=500``), the
-   slice (``engine.eval_prioritization.evaluate``) with every launch counter
-   set to 0 just before and read just after: each kernel of the path must
-   have launched; every artifact is checked for the JAX package's name,
-   dtype and shape, every CAM order for being a permutation; APFD of
-   deep_gini, dsa and NAC_0.75 is printed;
-4. per path, the slice on a small subset on the card and on the CPU (the
+   slice (``engine.eval_prioritization.evaluate``) on run 0's trained
+   checkpoint (``CaseStudy.load_params`` through the bridge) with every
+   launch counter set to 0 just before and read just after: each kernel of
+   the path must have launched; every artifact is checked for the JAX
+   package's name, dtype and shape, every CAM order for being a
+   permutation; APFD of deep_gini, dsa and NAC_0.75 is printed;
+5. per path, the slice on a small subset on the card and on the CPU (the
    plain versions), compared artifact by artifact.
 
-Prints the card's name and power limit, per-path seconds, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Inputs and weights are made with numpy from ``--seed``: MNIST stamp
-prototypes plus noise; the CIFAR-10 and IMDB stand-ins of
-``data/synthetic.py`` (their OOD sets through its corruptors); glorot-uniform
-weights in the flax layout sent through the bridge. The seeded IMDB head
-predicts one class for some seeds, so its ``Dense_1`` bias is centred on the
-median logit gap over training inputs (``centre_imdb_head``).
+Prints the card's name and power limit, per-run training records, per-path
+seconds, one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
+{...}}``. Inputs are made with numpy from ``--seed``: the MNIST, CIFAR-10
+and IMDB stand-ins of ``data/synthetic.py`` (their OOD sets through its
+corruptors), whose ambiguous 8% keep a trained model's nominal faults, and
+so nominal APFD, defined. Weights are the port's own training on them, from
+flax's initializers drawn from the run id.
 """
 
 import argparse
@@ -61,7 +86,8 @@ import torch
 import torch.nn.functional as F
 
 from simple_tip_tpu_torch import _build
-from simple_tip_tpu_torch.bridge import glorot_params, params_from_jax
+from simple_tip_tpu_torch.bridge import params_from_jax
+from simple_tip_tpu_torch.casestudies.base import CaseStudy, CaseStudySpec
 from simple_tip_tpu_torch.config import subdir
 from simple_tip_tpu_torch.data import synthetic
 from simple_tip_tpu_torch.device import resolve
@@ -70,8 +96,15 @@ from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 from simple_tip_tpu_torch.models.predict import PREDICT_BATCH, predict, to_device
+from simple_tip_tpu_torch.models.train import (
+    TrainConfig,
+    categorical_crossentropy,
+    evaluate_accuracy,
+    training_rows,
+)
 from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
+from simple_tip_tpu_torch.utils import checkpoint
 
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -83,31 +116,44 @@ NC_METRICS = (
 )
 # Per path: model, (train, nominal, ood) sizes, NC and SA taps, DSA badge,
 # batch size (the JAX case study's prediction badge), coverage neurons of
-# the NC taps, and the kernels the path must launch.
+# the NC taps, the kernels the test_prio path must launch; for training the
+# JAX registry's batch size, the runs trained, the classes, and the kernels
+# the training epoch must launch once a step.
 PATHS = {
     "mnist": dict(
         model=MnistConvNet, sizes=(60_000, 10_000, 10_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=128,
         neurons=26 * 26 * 32 + 13 * 13 * 32 + 11 * 11 * 64 + 5 * 5 * 64,
         kernels=("fused_mnist_forward", "dsa_nearest"),
+        train_batch=128, runs=[0, 1], classes=10, train_kernels=(),
     ),
     "cifar10": dict(
         model=Cifar10ConvNet, sizes=(50_000, 10_000, 10_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=32,
         neurons=30 * 30 * 32 + 15 * 15 * 32 + 13 * 13 * 64 + 6 * 6 * 64,
         kernels=("fused_cifar10_forward", "dsa_nearest"),
+        train_batch=32, runs=[0], classes=10, train_kernels=(),
     ),
     "imdb": dict(
         model=ImdbTransformer, sizes=(25_000, 25_000, 25_000), nc=[3, 5], sa=[5],
         dsa_badge=500, batch=600, neurons=32 + 20,
         kernels=("flash_attention_fwd", "dsa_nearest"),
+        train_batch=32, runs=[0], classes=2,
+        train_kernels=("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
     ),
 }
+# Accuracy a trained run must reach after its one epoch, on the held-out 10%
+# and on the nominal test set: well above twice chance (0.2, 0.6). One epoch
+# reached 0.954-0.961 on all three (CIFAR-10 and IMDB on an H100, MNIST on
+# the CPU); the stand-ins' 8% ambiguous samples cap it near 0.96.
+ACCURACY_FLOOR = {"mnist": 0.85, "cifar10": 0.85, "imdb": 0.85}
 COUNTERS = {
     "fused_mnist_forward": (fused_forward, "LAUNCHES"),
     "fused_cifar10_forward": (fused_forward, "CIFAR_LAUNCHES"),
     "dsa_nearest": (dsa_cuda, "LAUNCHES"),
     "flash_attention_fwd": (flash_attention, "LAUNCHES"),
+    "flash_attention_bwd_dq": (flash_attention, "BWD_DQ_LAUNCHES"),
+    "flash_attention_bwd_dkv": (flash_attention, "BWD_DKV_LAUNCHES"),
 }
 
 
@@ -120,56 +166,17 @@ def read_counters() -> dict:
     return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
-def make_mnist_data(seed: int, sizes):
-    """(train x, y), (nominal x, y), (ood x, y): stamp prototypes plus noise."""
-    rng = np.random.default_rng(seed)
-    protos = np.zeros((10, 28, 28, 1), np.float32)
-    for c in range(10):
-        r, col = rng.integers(0, 20, 2)
-        protos[c, r : r + 8, col : col + 8] = 1.0
-
-    def draw(n, noise):
-        y = rng.integers(0, 10, size=n)
-        x = protos[y] + rng.normal(0, noise, size=(n, 28, 28, 1)).astype(np.float32)
-        return np.clip(x, 0, 1).astype(np.float32), y
-
-    n_train, n_test, n_ood = sizes
-    return draw(n_train, 0.2), draw(n_test, 0.2), draw(n_ood, 0.45)
-
-
 def make_data(family: str, seed: int):
     """(train x, y), (nominal x, y), (ood x, y) for one path at its sizes."""
     n_train, n_test, n_ood = PATHS[family]["sizes"]
-    if family == "mnist":
-        return make_mnist_data(seed, (n_train, n_test, n_ood))
-    if family == "cifar10":
-        train, test = synthetic.image_classification(seed, n_train, n_test, (32, 32, 3))
-        ood = synthetic.corrupt_images(test[0][:n_ood], seed + 1)
-    else:
+    if family == "imdb":
         train, test = synthetic.token_classification(seed, n_train, n_test)
         ood = synthetic.corrupt_tokens(test[0][:n_ood], seed + 1)
+    else:
+        shape = (28, 28, 1) if family == "mnist" else (32, 32, 3)
+        train, test = synthetic.image_classification(seed, n_train, n_test, shape)
+        ood = synthetic.corrupt_images(test[0][:n_ood], seed + 1)
     return train, test, (ood, test[1][:n_ood])
-
-
-def centre_imdb_head(params: dict, x_train: np.ndarray) -> float:
-    """Centre the seeded IMDB ``Dense_1`` bias on the median logit gap.
-
-    Random weights give every input nearly the same pooled features, so a
-    seeded head can predict one class for everything, and DSA's
-    other-class distance needs two predicted classes. A CPU forward (the
-    plain versions) over up to 2,000 training inputs finds the median gap
-    between the two logits; the bias is shifted by half of it each way, so
-    about half the inputs go to each class. Returns the shift.
-    """
-    net = ImdbTransformer().eval()
-    net.load_state_dict(params_from_jax(params)["module"])
-    with torch.no_grad():
-        _, taps = net(to_device(x_train[:2000], torch.device("cpu")))
-    bias = params["Dense_1"]["bias"]
-    logits = taps[6].numpy() @ params["Dense_1"]["kernel"] + bias
-    gap = float(np.median(logits[:, 1] - logits[:, 0]))
-    params["Dense_1"]["bias"] = (bias + np.float32(gap / 2) * np.array([1, -1], np.float32)).astype(np.float32)
-    return gap
 
 
 def predicted_classes(family: str, params, x: np.ndarray, dev) -> list:
@@ -177,10 +184,68 @@ def predicted_classes(family: str, params, x: np.ndarray, dev) -> list:
     model = BaseModel(PATHS[family]["model"](), params, device=dev)
     probs = predict(model.net, model.fused, x, dev)
     counts = torch.bincount(probs.argmax(1), minlength=probs.shape[1]).tolist()
-    print(f"{family}: seeded model predicts classes {counts} on {x.shape[0]} training inputs")
+    print(f"{family}: trained run 0 predicts classes {counts} on {x.shape[0]} training inputs")
     if sum(1 for c in counts if c) < 2:
         raise AssertionError(f"{family}: DSA's other-class distance needs two predicted classes")
     return counts
+
+
+def case_study(family: str, data) -> CaseStudy:
+    """The family's case study over this run's data, with the JAX
+    registry's train config at one epoch."""
+    cfg = PATHS[family]
+    return CaseStudy(CaseStudySpec(
+        name=family, model_factory=cfg["model"], loader=lambda: data,
+        train_cfg=TrainConfig(batch_size=cfg["train_batch"], epochs=1, learning_rate=1e-3,
+                              validation_split=0.1),
+        nc_activation_layers=tuple(cfg["nc"]), sa_activation_layers=tuple(cfg["sa"]),
+        prediction_badge_size=cfg["batch"], num_classes=cfg["classes"],
+        dsa_badge_size=cfg["dsa_badge"],
+    ))
+
+
+def train_family(family: str, data, dev) -> tuple:
+    """Train the family's runs through ``CaseStudy.train`` with the counters
+    read around it; check losses, accuracies and checkpoints. Returns (the
+    case study, the record)."""
+    cfg = PATHS[family]
+    cs = case_study(family, data)
+    zero_counters()
+    t0 = time.perf_counter()
+    histories = cs.train(cfg["runs"], device=dev)
+    train_s = time.perf_counter() - t0
+    launches = read_counters()
+    (x_tr, y_tr), (x_nom, y_nom), _ = data
+    n_fit = training_rows(x_tr.shape[0], cs.spec.train_cfg.validation_split)
+    runs = {}
+    for run in cfg["runs"]:
+        [rec] = histories[run]
+        if not rec["mean_loss"] < rec["first_loss"]:
+            raise AssertionError(f"{family} run {run}: mean epoch loss {rec['mean_loss']} "
+                                 f"is not below the first step's {rec['first_loss']}")
+        params = cs.load_params(run)
+        with open(cs.model_path(run), "rb") as f:
+            if checkpoint.to_bytes(params) != f.read():
+                raise AssertionError(f"{family} run {run}: the checkpoint does not read back")
+        acc = {
+            "held_out_accuracy": evaluate_accuracy(cs.model_def, params, x_tr[n_fit:],
+                                                   y_tr[n_fit:], dev),
+            "test_accuracy": evaluate_accuracy(cs.model_def, params, x_nom, y_nom, dev),
+        }
+        for name, value in acc.items():
+            if not value >= ACCURACY_FLOOR[family]:
+                raise AssertionError(f"{family} run {run}: {name} {value} below the floor "
+                                     f"{ACCURACY_FLOOR[family]}")
+        runs[run] = {**rec, **acc}
+    steps = sum(r["steps"] for r in runs.values())
+    for name in cfg["train_kernels"]:
+        if launches[name] != steps:
+            raise AssertionError(f"{family} training launched {name} {launches[name]} times "
+                                 f"in {steps} steps")
+    record = {"train": family, "rows": n_fit, "batch": cfg["train_batch"], "train_s": train_s,
+              "runs": runs, "launches": launches}
+    print(json.dumps(record))
+    return cs, record
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -431,6 +496,166 @@ def check_flash_attention(params, tokens: np.ndarray, dev, seed: int) -> dict:
     }
 
 
+def _bwd_close(got, want, what: str) -> tuple:
+    """(max |got - want|, that over max |want|); raises unless |got - want|
+    <= atol + 1e-4 |want| with atol = min(1e-5, 1e-4 max |want|), so the
+    check can fail whatever the scale of the gradients."""
+    scale = float(want.abs().max())
+    excess = float(((got - want).abs() - 1e-4 * want.abs()).max())
+    if excess > min(1e-5, 1e-4 * scale):
+        raise AssertionError(f"flash backward {what}: off by {excess} beyond rtol 1e-4 "
+                             f"(max |want| {scale})")
+    err = float((got - want).abs().max())
+    return err, err / scale
+
+
+def imdb_step_tensors(net, tokens: np.ndarray, labels: np.ndarray, dev):
+    """q, k, v [B, 100, 2, 32] of an IMDB forward over ``tokens`` and dO, the
+    gradient of the batch's mean cross-entropy (``train=False``) with
+    respect to the attention core's output, scaled to unit RMS: the
+    backward is linear in dO, and the mean's dO (RMS ~1e-3) would leave dq
+    and dk near 1e-5, the size of the check's atol."""
+    attn = net.block.attention
+    x = to_device(tokens, dev)
+    emb = net.embedding(x).detach()
+    b, t, _ = emb.shape
+    with torch.no_grad():
+        q, k, v = (p(emb).reshape(b, t, attn.num_heads, attn.head_dim).contiguous()
+                   for p in (attn.query, attn.key, attn.value))
+    core = flash_attention.flash_attention(q, k, v).detach().requires_grad_()
+    probs, _ = net.suffix((emb, attn.out(core.reshape(b, t, -1))))
+    y = F.one_hot(torch.as_tensor(labels, device=dev), probs.shape[1]).float()
+    (dout,) = torch.autograd.grad(categorical_crossentropy(probs, y).mean(), core)
+    return q, k, v, (dout / dout.pow(2).mean().sqrt()).contiguous()
+
+
+def check_flash_backward(params, data, dev, seed: int) -> list:
+    """B5 and B6 against their plain versions on a real IMDB training step
+    (the batch of 32 and its dO), a ragged [4, 300, 2, 8] and dh=128
+    [4, 200, 2, 128]; timed at the step and at [8192, 100, 2, 32], with
+    B4 beside them (``fwd_ms``) for the training step's breakdown."""
+    net = _module("imdb", params, dev)
+    (x_tr, y_tr), _, _ = data
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    cases = {
+        "step": imdb_step_tensors(net, x_tr[:32], y_tr[:32], dev),
+        "ragged": tuple(normal(4, 300, 2, 8) for _ in range(4)),
+        "dh128": tuple(normal(4, 200, 2, 128) for _ in range(4)),
+        "timing": imdb_step_tensors(net, x_tr[:PREDICT_BATCH], y_tr[:PREDICT_BATCH], dev),
+    }
+    err = {"dq": 0.0, "dkv": 0.0}
+    rel = {}  # per case and gradient: max |got - want| / max |want|
+    timed = {}
+    for name, (q, k, v, dout) in cases.items():
+        out, lse = flash_attention.flash_attention_fwd(q, k, v)
+        dvec = flash_attention.attention_delta(out, dout)
+        args = (q, k, v, dout, lse, dvec)
+        dq = flash_attention.flash_bwd_dq(*args)
+        dk, dv = flash_attention.flash_bwd_dkv(*args)
+        want_dk, want_dv = flash_attention.flash_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        close = {"dq": _bwd_close(dq, flash_attention.flash_bwd_dq_plain(*args), f"{name} dq"),
+                 "dk": _bwd_close(dk, want_dk, f"{name} dk"),
+                 "dv": _bwd_close(dv, want_dv, f"{name} dv")}
+        rel[name] = {g: r for g, (_, r) in close.items()}
+        err["dq"] = max(err["dq"], close["dq"][0])
+        err["dkv"] = max(err["dkv"], close["dk"][0], close["dv"][0])
+        if name not in ("step", "timing"):
+            continue
+        qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh)
+        doh = dout.permute(0, 2, 1, 3).contiguous()
+        reps = 20 if name == "step" else 5
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(sdpa, (qh, kh, vh), doh, retain_graph=True), reps)
+        b, t, h, dh = q.shape
+        pairs = b * h * t * t * dh  # one product is 2 * pairs FLOPs
+        io = 4 * b * t * h * dh  # bytes of one [B, T, H, dh] array
+        rows = 4 * 2 * b * h * t  # lse and D
+        timed[name] = {
+            "shape": [b, t, h, dh],
+            "fwd_ms": cuda_ms(lambda: flash_attention.flash_attention_fwd(q, k, v), reps),
+            "dq": {"ms": cuda_ms(lambda: flash_attention.flash_bwd_dq(*args), reps),
+                   "plain_ms": cuda_ms(lambda: flash_attention.flash_bwd_dq_plain(*args), 3),
+                   "library_ms": library_ms,
+                   "bound": bound_ms(3 * 2 * pairs, 5 * io + rows)},
+            "dkv": {"ms": cuda_ms(lambda: flash_attention.flash_bwd_dkv(*args), reps),
+                    "plain_ms": cuda_ms(lambda: flash_attention.flash_bwd_dkv_plain(*args), 3),
+                    "library_ms": library_ms,
+                    "bound": bound_ms(4 * 2 * pairs, 6 * io + rows)},
+        }
+    print(json.dumps({"flash_backward_relative_err": rel}))
+    print(json.dumps({"flash_backward_timed": timed}))
+    entries = []
+    for key, name, line in (("dq", "flash_attention_bwd_dq", 174),
+                            ("dkv", "flash_attention_bwd_dkv", 203)):
+        step, big = timed["step"][key], timed["timing"][key]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "simple_tip_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"simple_tip_tpu/ops/flash_attention.py:{line}",
+            "timed": "one launch at an IMDB training step, q/k/v/dO [32, 100, 2, 32]; "
+                     "library: the backward of scaled_dot_product_attention (dq, dk, dv)",
+            "max_abs_err": err[key],
+            "ms": step["ms"],
+            "plain_ms": step["plain_ms"],
+            "bound_ms": step["bound"][0],
+            "bound_by": step["bound"][1],
+            "library_ms": step["library_ms"],
+            "at_8192": {"ms": big["ms"], "plain_ms": big["plain_ms"],
+                        "bound_ms": big["bound"][0], "bound_by": big["bound"][1],
+                        "library_ms": big["library_ms"]},
+        })
+    return entries
+
+
+def check_imdb_gradients(params, data, dev) -> dict:
+    """Every parameter gradient of one full-width IMDB batch of 32 (loss
+    with ``train=False``) through ``FlashAttention``, on the card and on
+    the CPU, within rtol 2e-4 / atol 2e-5; the q/k/v kernels' gradients
+    must be non-zero. The q and k kernels' gradients are ~1e-5, so each
+    leaf's atol is cut to 2e-4 of its largest |gradient| plus 1e-7 of the
+    model's largest, the f32 rounding floor that holds the key bias (its
+    true gradient is 0: softmax ignores a shift shared by a query's keys)."""
+    (x_tr, y_tr), _, _ = data
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        net = _module("imdb", params, device)
+        probs, _ = net(to_device(x_tr[:32], device))
+        y = F.one_hot(torch.as_tensor(y_tr[:32], device=device), 2).float()
+        loss = categorical_crossentropy(probs, y).mean()
+        names, tensors = zip(*net.named_parameters())
+        grads.append(dict(zip(names, torch.autograd.grad(loss, tensors))))
+    card, cpu = grads
+    floor = 1e-7 * max(float(g.abs().max()) for g in cpu.values())
+    worst, relative = 0.0, {}
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        scale = float(want.abs().max())
+        atol = min(2e-5, 2e-4 * scale + floor)
+        excess = float(((got - want).abs() - 2e-4 * want.abs()).max())
+        if excess > atol:
+            raise AssertionError(f"IMDB gradient {name}: card vs CPU off by {excess} beyond "
+                                 f"rtol 2e-4 + atol {atol}")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if name.startswith("block.attention."):
+            relative[name] = err / max(scale, floor)
+    norms = {p: float(card[f"block.attention.{p}.weight"].norm())
+             for p in ("query", "key", "value")}
+    if not all(n > 0 for n in norms.values()):
+        raise AssertionError(f"IMDB q/k/v kernel gradients vanish on the card: {norms}")
+    record = {"imdb_gradients_card_vs_cpu_max_abs": worst, "qkv_kernel_grad_norms": norms,
+              "attention_relative_err": relative}
+    print(json.dumps(record))
+    return record
+
+
 def expected_artifacts(family: str, n: int):
     """{file suffix: (dtype, shape)} the JAX package writes per dataset."""
     neurons = PATHS[family]["neurons"]
@@ -603,44 +828,57 @@ def main() -> int:
     t0 = time.perf_counter()
     data = {family: make_data(family, args.seed) for family in PATHS}
     print(f"data_s {time.perf_counter() - t0:.3f}")
-    flax_trees = {family: glorot_params(args.seed, family) for family in PATHS}
-    imdb_gap = centre_imdb_head(flax_trees["imdb"], data["imdb"][0][0])
-    print(f"imdb: Dense_1 bias centred on the median logit gap {imdb_gap}")
-    params = {family: params_from_jax(tree) for family, tree in flax_trees.items()}
-    classes = {family: predicted_classes(family, params[family], data[family][0][0], dev)
-               for family in PATHS}
-
-    kernels = [
-        check_fused_forward(params["mnist"], data["mnist"][1][0], dev),
-        check_cifar10_forward(params["cifar10"], data["cifar10"][1][0], dev),
-        check_flash_attention(params["imdb"], data["imdb"][1][0], dev, args.seed),
-    ]
-    dsa_by_path = {family: check_dsa_nearest(family, params[family], data[family][0][0],
-                                             data[family][1][0], dev)
-                   for family in PATHS}
 
     root = tempfile.mkdtemp(prefix="tip_chip_smoke_")
     paths = {}
     try:
+        os.environ["TIP_ASSETS"] = os.path.join(root, "train")
+        training, params = {}, {}
+        for family in PATHS:
+            cs, training[family] = train_family(family, data[family], dev)
+            params[family] = params_from_jax(cs.load_params(0))
+        classes = {family: predicted_classes(family, params[family], data[family][0][0], dev)
+                   for family in PATHS}
+
+        kernels = [
+            check_fused_forward(params["mnist"], data["mnist"][1][0], dev),
+            check_cifar10_forward(params["cifar10"], data["cifar10"][1][0], dev),
+            check_flash_attention(params["imdb"], data["imdb"][1][0], dev, args.seed),
+            *check_flash_backward(params["imdb"], data["imdb"], dev, args.seed),
+        ]
+        gradients = check_imdb_gradients(params["imdb"], data["imdb"], dev)
+        dsa_by_path = {family: check_dsa_nearest(family, params[family], data[family][0][0],
+                                                 data[family][1][0], dev)
+                       for family in PATHS}
+
         for family in PATHS:
             paths[family] = run_path(family, params[family], data[family], dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(json.dumps({"paths_s": {f: p["slice_s"] for f, p in paths.items()},
+    print(json.dumps({"train_s": {f: t["train_s"] for f, t in training.items()},
+                      "paths_s": {f: p["slice_s"] for f, p in paths.items()},
                       "total_s": sum(p["slice_s"] for p in paths.values())}))
 
     def launches_by_path(name):
         return {f: p["launches"][name] for f, p in paths.items() if name in PATHS[f]["kernels"]}
 
+    train_launches = training["imdb"]["launches"]
     for k in kernels:
-        k["launches"] = sum(launches_by_path(k["name"]).values())
+        if k["name"].startswith("flash_attention_bwd"):
+            # The backward runs only in training: its launches are the IMDB epoch's.
+            k["launches"] = train_launches[k["name"]]
+        else:
+            k["launches"] = sum(launches_by_path(k["name"]).values())
+            if k["name"] == "flash_attention_fwd":
+                k["training_launches"] = train_launches[k["name"]]
     kernels.insert(1, dsa_nearest_entry(dsa_by_path, launches_by_path("dsa_nearest")))
     print(json.dumps({"kernels": kernels}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"gpu": smi, "build_s": build_s, "kernels": kernels,
-                       "imdb_gap": imdb_gap, "classes": classes, "paths": paths}, f, indent=1)
+            json.dump({"gpu": smi, "build_s": build_s, "kernels": kernels, "training": training,
+                       "imdb_gradients": gradients, "classes": classes, "paths": paths},
+                      f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -118,6 +118,10 @@ def library() -> ctypes.CDLL:
     lib.tip_dsa_nearest.argtypes = [p, p, p, i, p, p, p, i, i, i, i, p, p, p, p, p]
     lib.tip_flash_attention_fwd.restype = i
     lib.tip_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.tip_flash_attention_bwd_dq.restype = i
+    lib.tip_flash_attention_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, i, f, p]
+    lib.tip_flash_attention_bwd_dkv.restype = i
+    lib.tip_flash_attention_bwd_dkv.argtypes = [p] * 8 + [i, i, i, i, i, f, p]
     return lib
 
 

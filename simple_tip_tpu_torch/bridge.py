@@ -1,4 +1,5 @@
-"""Weight bridge from the flax parameter trees of the three model families.
+"""Weight bridge between the flax parameter trees of the three model
+families and the port's modules.
 
 A flax tree arrives as nested dicts of numpy arrays; ``params_from_jax``
 tells the family by its top-level names and returns two layouts of it:
@@ -22,12 +23,21 @@ tells the family by its top-level names and returns two layouts of it:
     core is kernel B4 inside the module).
 
 All tensors are float32 on the CPU; callers move them to their device.
+``params_to_jax`` is the inverse of the module layout: a trained module (or
+its ``state_dict``) becomes a flax-layout numpy tree again, with every
+dict's keys sorted as a jitted flax ``init`` returns them, and the IMDB
+attention subtree under ``MultiHeadDotProductAttention_0``, the name of the
+JAX default (dense) core, from which the JAX ``CaseStudy.load_params``
+builds its template.
 """
 
-from typing import Dict
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
+from torch import nn
+
+from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 
 FAMILIES = ("mnist", "cifar10", "imdb")
 _ATTENTION_NAMES = ("MultiHeadDotProductAttention_0", "SequenceParallelSelfAttention_0")
@@ -39,6 +49,14 @@ def _f32(a) -> torch.Tensor:
 
 def _np(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
+
+
+def family_model(family: str):
+    """The port's model class of ``family``."""
+    for model in (MnistConvNet, Cifar10ConvNet, ImdbTransformer):
+        if model.family == family:
+            return model
+    raise ValueError(f"unknown family {family!r}; use one of {FAMILIES}")
 
 
 def family_of(params) -> str:
@@ -145,6 +163,64 @@ def params_from_jax(params) -> Dict[str, Dict[str, torch.Tensor]]:
     convert = {"mnist": _mnist, "cifar10": _cifar10, "imdb": _imdb}[family_of(params)]
     module, fused = convert(params)
     return {"module": module, "fused": fused}
+
+
+def _sorted(tree: Dict) -> Dict:
+    return {
+        k: _sorted(v) if isinstance(v, dict) else np.ascontiguousarray(v)
+        for k, v in sorted(tree.items())
+    }
+
+
+def params_to_jax(family: str, module: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict:
+    """The flax-layout numpy tree of a port module of ``family`` (or of its
+    ``state_dict``): the inverse of ``params_from_jax``'s module layout.
+    Conv kernels go OIHW -> HWIO, dense kernels ``[out, in]`` -> ``[in, out]``,
+    and IMDB's q/k/v and out kernels unfold their head axes."""
+    state = module.state_dict() if isinstance(module, nn.Module) else module
+    w = {k: v.detach().cpu().numpy().astype(np.float32) for k, v in state.items()}
+
+    def conv(name):
+        return {"kernel": w[f"{name}.weight"].transpose(2, 3, 1, 0), "bias": w[f"{name}.bias"]}
+
+    def dense(name):
+        return {"kernel": w[f"{name}.weight"].T, "bias": w[f"{name}.bias"]}
+
+    if family == "mnist":
+        tree = {"Conv_0": conv("conv1"), "Conv_1": conv("conv2"), "Dense_0": dense("dense")}
+    elif family == "cifar10":
+        tree = {f"Conv_{i}": conv(f"conv{i + 1}") for i in range(3)}
+        tree.update({f"Dense_{i}": dense(f"dense{i + 1}") for i in range(2)})
+    elif family == "imdb":
+        embed = w["embedding.token.weight"].shape[1]
+        heads = w["block.attention.query.weight"].shape[0] // embed
+
+        def projection(name):
+            kernel = w[f"block.attention.{name}.weight"].T
+            return {"kernel": kernel.reshape(kernel.shape[0], heads, -1),
+                    "bias": w[f"block.attention.{name}.bias"].reshape(heads, -1)}
+
+        out = w["block.attention.out.weight"].T
+        attention = {name: projection(name) for name in ("query", "key", "value")}
+        attention["out"] = {"kernel": out.reshape(heads, -1, out.shape[1]),
+                            "bias": w["block.attention.out.bias"]}
+        block = {_ATTENTION_NAMES[0]: attention}
+        for i in (1, 2):
+            block[f"LayerNorm_{i - 1}"] = {"scale": w[f"block.norm{i}.weight"],
+                                           "bias": w[f"block.norm{i}.bias"]}
+            block[f"Dense_{i - 1}"] = dense(f"block.ffn{i}")
+        tree = {
+            "TokenAndPositionEmbedding_0": {
+                "Embed_0": {"embedding": w["embedding.token.weight"]},
+                "Embed_1": {"embedding": w["embedding.position.weight"]},
+            },
+            "TransformerBlock_0": block,
+            "Dense_0": dense("dense1"),
+            "Dense_1": dense("dense2"),
+        }
+    else:
+        raise ValueError(f"unknown family {family!r}; use one of {FAMILIES}")
+    return _sorted(tree)
 
 
 def glorot_params(seed: int, family: str = "mnist") -> Dict[str, Dict]:

@@ -35,6 +35,7 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
 class MnistConvNet(nn.Module):
     """LeNet-style convnet for MNIST/FMNIST; taps 0-3 are conv/pool outputs."""
 
+    family = "mnist"
     has_dropout = True
     sa_layers = (3,)
     nc_layers = (0, 1, 2, 3)
@@ -102,6 +103,7 @@ class MnistConvNet(nn.Module):
 class Cifar10ConvNet(nn.Module):
     """3-conv CNN for CIFAR-10; no stochastic layers (VR intentionally absent)."""
 
+    family = "cifar10"
     has_dropout = False
     sa_layers = (3,)
     nc_layers = (0, 1, 2, 3)
@@ -116,8 +118,15 @@ class Cifar10ConvNet(nn.Module):
         self.dense1 = nn.Linear(1024, 64)
         self.dense2 = nn.Linear(64, num_classes)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
-        """``(probs, taps)`` for NHWC input ``x`` ``[B, 32, 32, 3]``."""
+    def forward(
+        self,
+        x: torch.Tensor,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+        """``(probs, taps)`` for NHWC input ``x`` ``[B, 32, 32, 3]``; the
+        model has no dropout, so ``train`` and ``generator`` change nothing
+        (they keep the training loop's call the same for every family)."""
         h = x.permute(0, 3, 1, 2)
         taps: Dict[int, torch.Tensor] = {}
         h = F.relu(self.conv1(h))

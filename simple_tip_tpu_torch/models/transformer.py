@@ -7,8 +7,9 @@ Dropout 0.1 -> Dense 2 softmax. Inputs are int64 token ids ``[B, T]``; taps
 1-7 follow the Keras layer numbering (1 embedding, 2 block output, 3 pooled,
 4 pooled after dropout, 5 dense 20, 6 after dropout, 7 probabilities).
 
-The attention core is ``ops/flash_attention.flash_attention``: kernel B4 on
-the card, its plain version on the CPU. It is the only core: the JAX
+The attention core is ``ops/flash_attention.flash_attention``, a
+``torch.autograd.Function``: kernel B4 forward and kernels B5/B6 backward
+on the card, their plain versions on the CPU. It is the only core: the JAX
 package's dense core (``nn.MultiHeadDotProductAttention``) computes the same
 function, scaling q by 1/sqrt(dh) before the product where the flash core
 scales the scores after it, which agrees to float32 rounding. Both of its
@@ -118,6 +119,7 @@ class TransformerBlock(nn.Module):
 class ImdbTransformer(nn.Module):
     """2-class IMDB sentiment classifier with Keras-index taps 1-7."""
 
+    family = "imdb"
     has_dropout = True
     sa_layers = (5,)
     # The reference's tuple-form NC taps are ignored there; ints 3 and 5 remain.

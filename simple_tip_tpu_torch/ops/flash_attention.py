@@ -1,26 +1,35 @@
-"""Flash-attention forward: the CUDA kernel, its plain PyTorch version, its counter.
+"""Flash attention: the CUDA kernels B4-B6, their plain PyTorch versions,
+their counters, and the differentiable entry point.
 
-Replaces the Pallas TPU kernel ``simple_tip_tpu/ops/flash_attention.py``
-``_flash_kernel`` (via ``_flash_fwd_call``, public ``flash_attention``):
-exact attention ``softmax(q k^T / sqrt(dh)) v`` with a streaming softmax over
-tiles of keys, writing the output and the log-sum-exp of every query row
-(the residual that the backward pass reuses). Layout is the JAX function's:
-q ``[B, Tq, H, dh]``, k and v ``[B, Tkv, H, dh]``, out ``[B, Tq, H, dh]``;
-the log-sum-exp is ``[B, H, Tq]``. float32 throughout; ``dh <= 128``, any
-``Tq`` and ``Tkv >= 1``.
+Replaces the Pallas TPU kernels of ``simple_tip_tpu/ops/flash_attention.py``:
 
-At the IMDB shapes (T=100, H=2, dh=32) the function is bound by operations,
-narrowly (2.56 MFLOP and 102 KB a sequence). The kernel
-(``csrc/flash_attention_fwd.cu``) keeps one block per (sequence-head, tile
-of 64 queries), walks the key tiles inside the block with K and V staged in
-shared memory and the running max, normaliser and accumulator in
-registers; see the source for the design. The TPU kernel's 128-lane padding
-of T is a TPU constraint and is gone: ragged key tiles are masked.
+- B4 ``_flash_kernel`` (via ``_flash_fwd_call``): exact attention
+  ``softmax(q k^T / sqrt(dh)) v`` with a streaming softmax over tiles of
+  keys, writing the output and the log-sum-exp of every query row;
+- B5 ``_flash_bwd_dq_kernel`` and B6 ``_flash_bwd_dkv_kernel`` (via
+  ``_flash_bwd_call``): the backward over that log-sum-exp, recomputing
+  ``p = exp(s * scale - lse)`` and ``ds = p * (dO v^T - D)`` with
+  ``D = rowsum(dO * out)``; B5 gives ``dq = scale * ds k``, B6
+  ``dv = p^T dO`` and ``dk = scale * ds^T q``.
 
-``flash_attention_fwd`` launches the kernel for CUDA tensors and runs
-``flash_attention_plain`` for CPU tensors; ``flash_attention`` returns the
-output only. ``LAUNCHES`` counts kernel launches and nothing else. Forward
-only: the gradient (kernels B5 and B6) is not ported yet.
+Layout is the JAX function's: q ``[B, Tq, H, dh]``, k and v
+``[B, Tkv, H, dh]``, out and the gradients like their inputs; the
+log-sum-exp and ``D`` are ``[B, H, Tq]``. float32 throughout; ``dh <= 128``,
+any ``Tq`` and ``Tkv >= 1``. At the IMDB shapes (T=100, H=2, dh=32) all
+three are bound by operations, narrowly. The kernels
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) keep one
+block per (sequence-head, tile of 64 rows), walk the other side's tiles
+inside the block, read [B,T,H,dh] in place and mask ragged tiles; see the
+sources for the designs. The TPU kernels' 128-lane padding of T is gone.
+
+``flash_attention(q, k, v)`` is the entry point the models call: it goes
+through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
+B4 and whose backward is B5 and B6 on the card, and their plain versions on
+the CPU (autograd never traces the plain forward loop). Each wrapper
+(``flash_attention_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) launches its
+kernel for CUDA tensors (or raises) and runs its plain version for CPU
+tensors. ``LAUNCHES`` (B4), ``BWD_DQ_LAUNCHES`` (B5) and
+``BWD_DKV_LAUNCHES`` (B6) count kernel launches and nothing else.
 """
 
 import ctypes
@@ -32,8 +41,11 @@ import torch
 from simple_tip_tpu_torch import _build
 
 LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
 NEG_INF = -1e30  # large-finite, as in the TPU kernel: -inf breaks the first rescale
-BLOCK_KV = 64  # key rows per tile, in the kernel and in the plain version
+BLOCK_KV = 64  # key rows per tile, in the kernels and in the plain versions
+BLOCK_Q = 64  # query rows per tile of the backward
 MAX_HEAD_DIM = 128
 
 
@@ -52,6 +64,23 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash attention needs at least one key")
 
 
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, H, dh]`` -> ``[B*H, T, dh]``."""
+    b, t, h, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, t, dh)
+
+
+def _unfold(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """``[B*H, T, dh]`` -> ``[B, T, H, dh]``."""
+    return x.reshape(b, h, x.shape[1], x.shape[2]).permute(0, 2, 1, 3)
+
+
+def _pad_keys(x: torch.Tensor) -> torch.Tensor:
+    """Folded keys or values padded with zero rows to a multiple of BLOCK_KV."""
+    pad = (-x.shape[1]) % BLOCK_KV
+    return torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], dim=1) if pad else x
+
+
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,15 +96,7 @@ def flash_attention_plain(
     t_kv = k.shape[1]
     scale = _scale(dh)
     block_kv = BLOCK_KV
-
-    def fold(x):
-        return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], dh)
-
-    qf, kf, vf = fold(q), fold(k), fold(v)
-    pad = (-t_kv) % block_kv
-    if pad:
-        kf = torch.cat([kf, kf.new_zeros(b * h, pad, dh)], dim=1)
-        vf = torch.cat([vf, vf.new_zeros(b * h, pad, dh)], dim=1)
+    qf, kf, vf = _fold(q), _pad_keys(_fold(k)), _pad_keys(_fold(v))
     m = torch.full((b * h, t_q), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros(b * h, t_q, dtype=torch.float32, device=q.device)
     acc = torch.zeros(b * h, t_q, dh, dtype=torch.float32, device=q.device)
@@ -89,9 +110,8 @@ def flash_attention_plain(
         l = l * alpha + p.sum(dim=2)
         acc = acc * alpha[:, :, None] + p @ vf[:, j0 : j0 + block_kv]
         m = m_new
-    out = acc / l[:, :, None]
     lse = m + torch.log(l)
-    return out.reshape(b, h, t_q, dh).permute(0, 2, 1, 3), lse.reshape(b, h, t_q)
+    return _unfold(acc / l[:, :, None], b, h), lse.reshape(b, h, t_q)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -120,21 +140,207 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return out, lse
 
 
+def _on(device: torch.device, kernel, plain, *args):
+    """``kernel(*args)`` for CUDA tensors, ``plain(*args)`` for CPU ones."""
+    if device.type == "cuda":
+        return kernel(*args)
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return plain(*args)
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out [B,Tq,H,dh], lse [B,H,Tq])`` of exact attention.
+    """``(out [B,Tq,H,dh], lse [B,H,Tq])`` of exact attention (B4).
 
     CUDA tensors go through the kernel (or raise); CPU tensors through the
     plain version.
     """
-    if q.device.type == "cuda":
-        return _launch(q, k, v)
-    if q.device.type != "cpu":
-        raise ValueError(f"unsupported device {q.device}")
-    return flash_attention_plain(q, k, v)
+    return _on(q.device, _launch, flash_attention_plain, q, k, v)
+
+
+def _p_ds(qf, kf, vf, dof, lse, dvec, j0: int, t_kv: int, scale: float):
+    """The shared recompute for queries ``qf`` against the padded keys
+    ``kf``/``vf`` (first key index ``j0``): ``p = exp(s * scale - lse)``
+    with keys at or past ``t_kv`` masked to -1e30, and
+    ``ds = p * (dO v^T - D)``."""
+    s = (qf @ kf.transpose(1, 2)) * scale
+    col = j0 + torch.arange(kf.shape[1], device=qf.device)
+    s = torch.where(col < t_kv, s, NEG_INF)
+    p = torch.exp(s - lse[:, :, None])
+    dp = dof @ vf.transpose(1, 2)
+    return p, p * (dp - dvec[:, :, None])
+
+
+def flash_bwd_dq_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    dvec: torch.Tensor,
+) -> torch.Tensor:
+    """B5 in plain PyTorch, in the Pallas kernel's steps: per tile of
+    ``BLOCK_KV`` keys, recompute ``p`` and ``ds`` and fold
+    ``scale * ds k`` into dq. Returns ``dq [B,Tq,H,dh]``."""
+    _check_shapes(q, k, v)
+    b, _, h, dh = q.shape
+    t_kv = k.shape[1]
+    scale = _scale(dh)
+    qf, dof = _fold(q), _fold(dout)
+    kf, vf = _pad_keys(_fold(k)), _pad_keys(_fold(v))
+    lse_f, d_f = lse.reshape(b * h, -1), dvec.reshape(b * h, -1)
+    acc = torch.zeros_like(qf)
+    for j0 in range(0, kf.shape[1], BLOCK_KV):
+        kt, vt = kf[:, j0 : j0 + BLOCK_KV], vf[:, j0 : j0 + BLOCK_KV]
+        _, ds = _p_ds(qf, kt, vt, dof, lse_f, d_f, j0, t_kv, scale)
+        acc = acc + scale * (ds @ kt)
+    return _unfold(acc, b, h)
+
+
+def flash_bwd_dkv_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    dvec: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6 in plain PyTorch, in the Pallas kernel's steps: per tile of
+    ``BLOCK_Q`` queries, recompute ``p`` and ``ds`` and fold ``p^T dO`` into
+    dv and ``scale * ds^T q`` into dk. Returns ``(dk, dv)``, each
+    ``[B,Tkv,H,dh]``."""
+    _check_shapes(q, k, v)
+    b, t_q, h, dh = q.shape
+    t_kv = k.shape[1]
+    scale = _scale(dh)
+    qf, dof = _fold(q), _fold(dout)
+    kf, vf = _pad_keys(_fold(k)), _pad_keys(_fold(v))
+    lse_f, d_f = lse.reshape(b * h, -1), dvec.reshape(b * h, -1)
+    acc_k, acc_v = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, t_q, BLOCK_Q):
+        rows = slice(i0, i0 + BLOCK_Q)
+        qt, dot = qf[:, rows], dof[:, rows]
+        p, ds = _p_ds(qt, kf, vf, dot, lse_f[:, rows], d_f[:, rows], 0, t_kv, scale)
+        acc_v = acc_v + p.transpose(1, 2) @ dot
+        acc_k = acc_k + scale * (ds.transpose(1, 2) @ qt)
+    return _unfold(acc_k[:, :t_kv], b, h), _unfold(acc_v[:, :t_kv], b, h)
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``D = rowsum(dO * out)`` as ``[B, H, Tq]``, the layout of lse (one
+    plain line, as the JAX package computes it in XLA outside its kernels)."""
+    return (dout * out).sum(dim=-1).permute(0, 2, 1).contiguous()
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of exact attention in plain PyTorch: ``D``, then B5's
+    and B6's plain versions."""
+    dvec = attention_delta(out, dout)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, dout, lse, dvec)
+    return flash_bwd_dq_plain(q, k, v, dout, lse, dvec), dk, dv
+
+
+def _check_bwd(q, k, v, dout, lse, dvec) -> None:
+    _check_shapes(q, k, v)
+    b, t_q, h, dh = q.shape
+    if dout.shape != q.shape:
+        raise ValueError(f"dO {tuple(dout.shape)} is not shaped like q {tuple(q.shape)}")
+    if lse.shape != (b, h, t_q) or dvec.shape != (b, h, t_q):
+        raise ValueError("lse and D must be [B, H, Tq]")
+    for t in (q, k, v, dout, lse, dvec):
+        if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("flash attention backward takes contiguous float32 tensors on one card")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention takes head_dim <= {MAX_HEAD_DIM}, got {dh}")
+
+
+def _launch_dq(q, k, v, dout, lse, dvec):
+    global BWD_DQ_LAUNCHES
+    _check_bwd(q, k, v, dout, lse, dvec)
+    b, t_q, h, dh = q.shape
+    dq = torch.empty_like(q)
+    if b * h * t_q == 0:
+        return dq
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tip_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dq.data_ptr(), b, t_q, k.shape[1], h, dh,
+            ctypes.c_float(_scale(dh)), stream,
+        )
+    _build.check(err, "tip_flash_attention_bwd_dq")
+    BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, dout, lse, dvec):
+    global BWD_DKV_LAUNCHES
+    _check_bwd(q, k, v, dout, lse, dvec)
+    b, t_q, h, dh = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if b * h * t_q == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tip_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t_q, k.shape[1], h, dh,
+            ctypes.c_float(_scale(dh)), stream,
+        )
+    _build.check(err, "tip_flash_attention_bwd_dkv")
+    BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse, dvec) -> torch.Tensor:
+    """dq (B5) from q, k, v, dO, lse and ``D``: the kernel for CUDA tensors
+    (or raise), the plain version for CPU tensors."""
+    return _on(q.device, _launch_dq, flash_bwd_dq_plain, q, k, v, dout, lse, dvec)
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, dvec) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` (B6) from q, k, v, dO, lse and ``D``: the kernel for
+    CUDA tensors (or raise), the plain version for CPU tensors."""
+    return _on(q.device, _launch_dkv, flash_bwd_dkv_plain, q, k, v, dout, lse, dvec)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Exact attention with the flash backward, on either device.
+
+    Forward: B4 (its plain version on the CPU), saving q, k, v, out and lse.
+    Backward: ``D = rowsum(dO * out)``, then B5 and B6 (their plain versions
+    on the CPU). The counterpart of the JAX package's ``_flash_core`` custom
+    VJP.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dvec = attention_delta(out, dout)
+        dq = flash_bwd_dq(q, k, v, dout, lse, dvec)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dvec)
+        return dq, dk, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Exact attention, ``[batch, seq, heads, head_dim]`` in and out."""
-    return flash_attention_fwd(q, k, v)[0]
+    """Exact attention, ``[batch, seq, heads, head_dim]`` in and out,
+    differentiable through ``FlashAttention``."""
+    return FlashAttention.apply(q, k, v)

@@ -100,12 +100,18 @@ class DSA:
     score is computed on its own, so the chunking never changes a score.
 
     The searches run on ``rows``, the kept training traces centred on their
-    mean ``mean``, with queries centred alike (``traces``). Distances do not change under a common shift,
-    but the searches expand d^2 = |x|^2 + |t|^2 - 2 x.t in float32, which
-    cancels badly when the traces lie far from the origin relative to
-    their spread: on seeded IMDB traces (norm ~2.4, nearest distances down
-    to 0.05) the uncentred expansion is off the float64 DSA by up to 1.3e-4
-    relative, the centred one by 1.1e-6. The JAX package expands uncentred.
+    mean ``mean``, with queries centred alike (``traces``). Distances do
+    not change under a common shift, but the searches expand
+    d^2 = |x|^2 + |t|^2 - 2 x.t in float32, which cancels badly when the
+    traces lie far from the origin relative to their spread: on seeded IMDB
+    traces (norm ~2.4, nearest distances down to 0.05) the uncentred
+    expansion is off the float64 DSA by up to 1.3e-4 relative, the centred
+    one by 1.1e-6. Centring cannot help where the classes themselves lie
+    far apart, as in a trained model's traces (MNIST tap 3 after one epoch:
+    centred norm ~22, nearest distances ~1.4, expansion off by up to 1.2e-4
+    relative), so the searches only pick the nearest rows and both
+    distances are then recomputed as |x - t|. The JAX package expands
+    uncentred and keeps the expanded distances.
     """
 
     def __init__(
@@ -133,11 +139,17 @@ class DSA:
         centred training rows."""
         return masked_nearest(x, labels, self.rows, self.rows_sq, self.train_labels, want_same)
 
+    def _distance(self, x: torch.Tensor, d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The distance from ``x`` to its nearest row ``idx``, recomputed as
+        |x - t| (no cancellation), or inf where the search found no row."""
+        exact = (x - self.rows.index_select(0, idx.long())).square().sum(dim=1).sqrt()
+        return torch.where(torch.isinf(d2), d2, exact)
+
     def _score(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         a2, a_idx = self.nearest(x, labels, want_same=True)
         closest = self.rows.index_select(0, a_idx.long())
-        b2, _ = self.nearest(closest, labels, want_same=False)
-        return torch.sqrt(a2) / torch.sqrt(b2)
+        b2, b_idx = self.nearest(closest, labels, want_same=False)
+        return self._distance(x, a2, a_idx) / self._distance(closest, b2, b_idx)
 
     def traces(self, activations: Activations) -> torch.Tensor:
         """Test activations as centred float32 rows (the searches' queries)."""

@@ -95,3 +95,31 @@ def test_centred_searches_stay_accurate_far_from_the_origin():
     d2b = ((train[nearest][:, None] - train[None]) ** 2).sum(-1)
     b = np.sqrt(np.where(~same, d2b, np.inf).min(1))
     np.testing.assert_allclose(got, a / b, rtol=1e-5, atol=0)
+
+
+def test_distances_are_exact_where_the_classes_lie_far_apart():
+    """Classes far apart relative to their spread, as in a trained model's
+    traces: centring leaves |x|^2 / d^2 near 500, where the float32
+    expansion alone is off the float64 DSA by ~1e-4. The port recomputes
+    the chosen rows' distances as |x - t|, so DSA agrees with a float64
+    DSA to rtol 1e-5 wherever the nearest row is not a near tie (best and
+    second best more than 1e-4 apart); at a near tie either row is
+    nearest within float32 rounding."""
+    rng = np.random.default_rng(5)
+    centres = rng.normal(0, 3, size=(4, 64))
+    labels = rng.integers(0, 4, size=400)
+    acts = (centres[labels] + rng.normal(0, 0.1, size=(400, 64))).astype(np.float32)
+    tlabels = rng.integers(0, 4, size=200)
+    test = (centres[tlabels] + rng.normal(0, 0.1, size=(200, 64))).astype(np.float32)
+    got = DSA(torch.from_numpy(acts), labels)(torch.from_numpy(test), tlabels)
+    train, x = acts.astype(np.float64), test.astype(np.float64)
+    same = tlabels[:, None] == labels[None]
+    d = np.sqrt(np.where(same, ((x[:, None] - train[None]) ** 2).sum(-1), np.inf))
+    nearest = d.argmin(1)
+    a = d.min(1)
+    db = np.sqrt(((train[nearest][:, None] - train[None]) ** 2).sum(-1))
+    b = np.where(~same, db, np.inf).min(1)
+    ranked = np.sort(d, axis=1)
+    clear = (ranked[:, 1] - ranked[:, 0]) > 1e-4 * ranked[:, 0]
+    assert clear.mean() > 0.9
+    np.testing.assert_allclose(got[clear], (a / b)[clear], rtol=1e-5, atol=0)

@@ -116,6 +116,57 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, t_kv):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
 
 
+BWD_SHAPES = [
+    ((32, 100, 2, 32), 100),  # an IMDB training batch
+    ((4, 300, 2, 8), 300),  # several ragged tiles each way
+    ((2, 70, 1, 128), 129),  # the widest head dim, Tq != Tkv
+    ((1, 40, 2, 8), 200),  # keys longer than queries
+    ((1, 150, 1, 4), 70),  # queries longer than keys
+    ((3, 65, 3, 5), 64),  # odd head dim, one ragged query tile
+]
+
+
+def _bwd_close(got, want, what):
+    """|got - want| <= 1e-5 + 1e-4 |want| (float32 sums in other orders)."""
+    excess = float(((got - want).abs() - 1e-4 * want.abs()).max())
+    assert excess <= 1e-5, f"{what} off by {excess} beyond rtol 1e-4"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,t_kv", BWD_SHAPES)
+def test_flash_bwd_kernels_match_plain(cuda_device, shape, t_kv):
+    rng = np.random.default_rng(shape[1] + t_kv)
+    b, t, h, dh = shape
+    q, k, v, dout = (
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
+        for s in ((b, t, h, dh), (b, t_kv, h, dh), (b, t_kv, h, dh), (b, t, h, dh))
+    )
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dvec = fa.attention_delta(out, dout)
+    before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, dvec)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, dvec)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _bwd_close(dq, fa.flash_bwd_dq_plain(q, k, v, dout, lse, dvec), "dq")
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, dout, lse, dvec)
+    _bwd_close(dk, want_dk, "dk")
+    _bwd_close(dv, want_dv, "dv")
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_on_the_card_match_the_cpu(cuda_device):
+    rng = np.random.default_rng(7)
+    host = [torch.from_numpy(rng.normal(size=(3, 90, 2, 16)).astype(np.float32)) for _ in range(4)]
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        q, k, v = (x.to(dev).requires_grad_() for x in host[:3])
+        out = fa.flash_attention(q, k, v)
+        grads[dev.type] = torch.autograd.grad(out, (q, k, v), host[3].to(dev))
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _bwd_close(got.cpu(), want, "gradient")
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     fused = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(0))["fused"].items()}
