@@ -30,15 +30,20 @@ Needs one CUDA card; exits non-zero without one (and without the
    - B2 DSA nearest, on each path's own DSA (its training subsample, its
      nominal test traces, its badges: MNIST 10,000 queries x 18,000 rows x
      1,600 features, CIFAR-10 10,000 x 15,000 x 2,304, IMDB 500-query
-     badges x 7,500 x 20): min d2 within rtol 1e-4, argmins equal or, where
-     they differ, the two rows' exact distances within rtol 1e-4 (library:
-     ``torch.cdist`` with a masked min); timed per score call, and summed
-     over the score calls the paths made;
+     badges x 7,500 x 20) through the DSA's class layout: min d2 within
+     rtol 1e-4, argmins equal or, where they differ, the two rows' exact
+     distances within rtol 1e-4 (library: ``torch.cdist`` with a masked
+     min); timed per score call, and summed over the score calls the paths
+     made; the training tiles the score call's two plans visit, against two
+     full walks;
    - B3 fused CIFAR-10 forward: max |dp| <= 1e-5 over 10,000 images
      (library: the module forward, cuDNN);
    - B4 flash attention: out and lse within atol 1e-5 + rtol 1e-5 on the
      q/k/v of a real IMDB forward over one prediction batch and on a ragged
-     shape (T=300, dh=8) (library: ``scaled_dot_product_attention``);
+     shape (T=300, dh=8); timed at that batch and at a training step's
+     [32, 100, 2, 32] (library: ``scaled_dot_product_attention``'s forward),
+     each also replayed from a CUDA graph (the card's time without the
+     host's launch cost, which bounds both calls at the step's shape);
    - B5 and B6 flash backward: dq, dk and dv within atol 1e-5 + rtol 1e-4
      (atol cut to 1e-4 of the largest |want|, so that small gradients are
      held too) on the q, k, v and dO (scaled to unit RMS) of a real IMDB
@@ -61,6 +66,11 @@ Needs one CUDA card; exits non-zero without one (and without the
    permutation; APFD of deep_gini, dsa and NAC_0.75 is printed;
 5. per path, the slice on a small subset on the card and on the CPU (the
    plain versions), compared artifact by artifact.
+
+Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
+at the rate of the unit that does its products (``UNITS``): float32 FMAs at
+67 TF/s for B1, B3, B5 and B6; 3xTF32 on the tensor cores (three TF32
+products at 495 TF/s) for B2 and B4.
 
 Prints the card's name and power limit, per-run training records, per-path
 seconds, one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -107,8 +117,14 @@ from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.utils import checkpoint
 
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
-PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# The unit that does each kernel's products, and its rate for them: float32
+# FMAs outside the tensor cores (67 TF/s), or 3xTF32 on the tensor cores
+# (three TF32 products at 495 TF/s, so 165 TF/s of float32-accurate work).
+UNITS = {
+    "f32": (67e12, "float32 FMAs on the CUDA cores, 67 TF/s"),
+    "3xtf32": (495e12 / 3, "3xTF32 on the tensor cores, 3 TF32 products at 495 TF/s"),
+}
 UNCERTAINTIES = ("softmax", "pcs", "softmax_entropy", "deep_gini")
 NC_METRICS = (
     "NBC_0", "NBC_0.5", "NBC_1", "SNAC_0", "SNAC_0.5", "SNAC_1",
@@ -261,9 +277,46 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least milliseconds at the published peaks, what bounds them)."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of the host's own time per call of ``fn()``, the
+    calls queued back to back (after a warm-up; the card is waited for only
+    after the last)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return took * 1e3 / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` replayed from one CUDA graph of ``reps``
+    calls: the card's time alone, without the host's cost of each launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(flops: float, nbytes: float, unit: str = "f32"):
+    """(least milliseconds at the published peaks, what bounds them), the
+    operations counted at the rate of ``unit`` (a key of ``UNITS``)."""
+    t_ops, t_bytes = flops / UNITS[unit][0] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -303,6 +356,7 @@ def check_fused_forward(params, x_test: np.ndarray, dev) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_unit": UNITS["f32"][1],
         "library_ms": library_ms,
     }
 
@@ -341,6 +395,7 @@ def check_cifar10_forward(params, x_test: np.ndarray, dev) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_unit": UNITS["f32"][1],
         "library_ms": library_ms,
     }
 
@@ -355,9 +410,12 @@ def check_dsa_nearest(family: str, params, x_train, x_test, dev) -> dict:
     """B2 against its plain version on one path's own DSA: the path's
     scorer (``SA_VARIANTS["dsa"]``, its subsample and badge) fitted on the
     path's training traces and run over its nominal test traces, every
-    badge checked; both searches of one score call (same class from the
-    test traces, other class from their nearest training traces) timed on
-    the first badge. Returns the per-path record, times per score call."""
+    badge checked through the DSA's class layout and the DSA's query plan
+    per badge (or the full walk, where its searches are too small to plan);
+    one score call (the plan, then the same-class search from the test
+    traces and the other-class search from their nearest training traces)
+    timed on the first badge. Returns the per-path record, times per score
+    call."""
     cfg = PATHS[family]
     model = BaseModel(cfg["model"](), params, cfg["sa"], include_last_layer=True,
                       batch_size=1024, device=dev)
@@ -367,15 +425,17 @@ def check_dsa_nearest(family: str, params, x_train, x_test, dev) -> dict:
     x = dsa.traces(test_outs[:-1])
     labels = test_outs[-1].argmax(1).to(torch.int32)
     chunk = dsa.badge_size or x.shape[0]
+    host_labels = labels.cpu().numpy()
     worst, differing = 0.0, 0
-    times = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    times, visited, planned = {}, 0, False
     for start in range(0, x.shape[0], chunk):
         xc, lc = x[start : start + chunk], labels[start : start + chunk]
+        queries = dsa.query_plan(host_labels[start : start + chunk])
         closest = None
         for want_same in (True, False):
             q = xc if want_same else closest
             args = (q, lc, dsa.rows, dsa.rows_sq, dsa.train_labels, want_same)
-            got_min, got_arg = dsa_cuda.masked_nearest(*args)
+            got_min, got_arg = dsa_cuda.masked_nearest(*args, dsa.layout, queries)
             want_min, want_arg = dsa_cuda.masked_nearest_plain(*args)
             finite = torch.isfinite(want_min)
             if not torch.equal(finite, torch.isfinite(got_min)):
@@ -395,13 +455,32 @@ def check_dsa_nearest(family: str, params, x_train, x_test, dev) -> dict:
                 gap = float(((d_got - d_want).abs() / d_want.clamp_min(1e-30)).max())
                 if gap > 1e-4:
                     raise AssertionError(f"DSA nearest ({family}): differing argmins {gap} apart")
-            if start == 0:
-                times["ms"] += cuda_ms(lambda: dsa_cuda.masked_nearest(*args), 3)
-                times["plain_ms"] += cuda_ms(lambda: dsa_cuda.masked_nearest_plain(*args), 2)
-                times["library_ms"] += cuda_ms(
-                    lambda: _cdist_nearest(q, lc, dsa.rows, dsa.train_labels, want_same), 2)
             if want_same:
                 closest = dsa.rows.index_select(0, want_arg.long())
+        if start == 0:
+            # One score call as the DSA makes it: the query plan (where the
+            # DSA plans), then both searches.
+            planned = queries is not None
+            walks = queries if planned else dsa_cuda.full_walk(len(xc), dsa.rows.shape[0], dev)
+            visited = sum(total for total, _ in walks.visits.values())
+            searches = ((xc, True), (closest, False))
+
+            def kernel_call():
+                plan = dsa.query_plan(host_labels[:chunk])
+                for q, same in searches:
+                    dsa_cuda.masked_nearest(q, lc, dsa.rows, dsa.rows_sq, dsa.train_labels,
+                                            same, dsa.layout, plan)
+
+            calls = {
+                "ms": kernel_call,
+                "plain_ms": lambda: [dsa_cuda.masked_nearest_plain(
+                    q, lc, dsa.rows, dsa.rows_sq, dsa.train_labels, same) for q, same in searches],
+                "library_ms": lambda: [_cdist_nearest(q, lc, dsa.rows, dsa.train_labels, same)
+                                       for q, same in searches],
+            }
+            # small calls (IMDB's badges) take more repetitions against the timer's noise
+            reps = (3, 2) if planned else (50, 50)
+            times = {key: cuda_ms(fn, reps[key != "ms"]) for key, fn in calls.items()}
     c = min(chunk, x.shape[0])
     n, d = dsa.rows.shape
     print(f"dsa_nearest {family}: {differing} argmins differ over {x.shape[0]} queries "
@@ -410,9 +489,14 @@ def check_dsa_nearest(family: str, params, x_train, x_test, dev) -> dict:
     # the same-class pairs in the first, the other-class pairs in the second.
     flops = 2 * c * n * d
     nbytes = 2 * ((c + n) * d * 4 + (c + n) * 8 + c * 8)
-    bound, by = bound_ms(flops, nbytes)
+    # the kernel's unit: 3xTF32 on the tensor cores, or f32 FMAs for few features
+    unit = "3xtf32" if dsa_cuda.tensor_cores(d) else "f32"
+    bound, by = bound_ms(flops, nbytes, unit)
+    full = 2 * -(-c // dsa_cuda.BLOCK_QUERIES) * -(-n // dsa_cuda.BLOCK_TRAIN)
     return {"queries_per_call": c, "train_rows": n, "features": d,
-            "max_abs_err": worst, **times, "bound_ms": bound, "bound_by": by}
+            "max_abs_err": worst, **times, "bound_ms": bound, "bound_by": by,
+            "bound_unit": UNITS[unit][1], "planned": planned, "tiles_visited": visited,
+            "tiles_two_full_walks": full}
 
 
 def dsa_nearest_entry(by_path: dict, launches: dict) -> dict:
@@ -437,6 +521,7 @@ def dsa_nearest_entry(by_path: dict, launches: dict) -> dict:
         "max_abs_err": max(rec["max_abs_err"] for rec in by_path.values()),
         **total,
         "bound_by": "operations" if 2 * ops_ms >= total["bound_ms"] else "bytes",
+        "bound_unit": "; ".join(f"{family}: {rec['bound_unit']}" for family, rec in by_path.items()),
         "timed": "sum over the main paths' DSA score calls of each path's time per call",
         "by_path": by_path,
     }
@@ -470,29 +555,59 @@ def check_flash_attention(params, tokens: np.ndarray, dev, seed: int) -> dict:
         torch.cuda.synchronize()
         err = max(err, _attention_close(out, want_out, f"{name} out"),
                   _attention_close(lse, want_lse, f"{name} lse"))
-    qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
-    with torch.no_grad():
-        ms = cuda_ms(lambda: flash_attention.flash_attention_fwd(q, k, v), 20)
-        plain_ms = cuda_ms(lambda: flash_attention.flash_attention_plain(q, k, v), 5)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 20)
     h, dh = attn.num_heads, attn.head_dim
-    # two products of 2*dh FLOPs per (query, key) pair
-    flops = 4 * b * h * t * t * dh
-    nbytes = 4 * (4 * b * t * h * dh + b * h * t)
-    bound, by = bound_ms(flops, nbytes)
-    print(f"flash_attention timed at q/k/v [{b}, {t}, {h}, {dh}]")
+
+    def timed(q, k, v, reps):
+        """Kernel, plain and SDPA forward times and the bound at q's shape."""
+        qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+        n = q.shape[0]
+
+        def kernel():
+            return flash_attention.flash_attention_fwd(q, k, v)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
+        with torch.no_grad():
+            rec = {
+                "shape": [n, t, h, dh],
+                "ms": cuda_ms(kernel, reps),
+                "plain_ms": cuda_ms(lambda: flash_attention.flash_attention_plain(q, k, v), 5),
+                "library_ms": cuda_ms(library, reps),
+                # the same calls replayed from CUDA graphs: the card's time alone
+                "device_ms": graph_ms(kernel, 20),
+                "library_device_ms": graph_ms(library, 20),
+                # the host's time per eager call, which bounds it where the card's is less
+                "host_ms": host_ms(kernel, reps),
+                "library_host_ms": host_ms(library, reps),
+            }
+        # two products of 2*dh FLOPs per (query, key) pair; q, k, v read and out
+        # written once, lse written once
+        flops = 4 * n * h * t * t * dh
+        nbytes = 4 * (4 * n * t * h * dh + n * h * t)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, "3xtf32")
+        return rec
+
+    big = timed(q, k, v, 20)
+    step = timed(*(x[:32].contiguous() for x in (q, k, v)), 100)
+    print(f"flash_attention timed at q/k/v [{b}, {t}, {h}, {dh}] and [32, {t}, {h}, {dh}]")
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "simple_tip_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "simple_tip_tpu/ops/flash_attention.py:58",
-        "timed": f"one launch at one prediction batch, q/k/v [{b}, {t}, {h}, {dh}]",
+        "timed": f"one launch at one prediction batch, q/k/v [{b}, {t}, {h}, {dh}]; "
+                 "library: scaled_dot_product_attention's forward",
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "library_ms": library_ms,
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "bound_unit": UNITS["3xtf32"][1],
+        "library_ms": big["library_ms"],
+        "device_ms": big["device_ms"],
+        "library_device_ms": big["library_device_ms"],
+        "at_training_step": step,
     }
 
 
@@ -606,6 +721,7 @@ def check_flash_backward(params, data, dev, seed: int) -> list:
             "plain_ms": step["plain_ms"],
             "bound_ms": step["bound"][0],
             "bound_by": step["bound"][1],
+            "bound_unit": UNITS["f32"][1],
             "library_ms": step["library_ms"],
             "at_8192": {"ms": big["ms"], "plain_ms": big["plain_ms"],
                         "bound_ms": big["bound"][0], "bound_by": big["bound"][1],

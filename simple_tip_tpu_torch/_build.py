@@ -7,7 +7,8 @@ build takes seconds. The library lands in ``.torch_kernels/<hash>/`` at the
 root of the checkout (listed in ``.gitignore``), keyed by a hash of the
 sources, and is built at first use: importing this module builds nothing.
 ``-Xptxas -v`` reports (registers, shared memory, spills) are kept in
-``build.log`` beside the library.
+``build.log`` beside the library. ``launch`` calls an entry point on a
+card's current stream, the last argument of every entry point.
 """
 
 import ctypes
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -115,7 +118,9 @@ def library() -> ctypes.CDLL:
     lib.tip_cifar10_forward.restype = i
     lib.tip_cifar10_forward.argtypes = [p] * 12 + [i, i, p]
     lib.tip_dsa_nearest.restype = i
-    lib.tip_dsa_nearest.argtypes = [p, p, p, i, p, p, p, i, i, i, i, p, p, p, p, p]
+    lib.tip_dsa_nearest.argtypes = [
+        p, p, p, i, p, p, p, p, i, i, i, i, p, i, i, i, i, p, p, p, p, i, p, p, p, p, p,
+    ]
     lib.tip_flash_attention_fwd.restype = i
     lib.tip_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
     lib.tip_flash_attention_bwd_dq.restype = i
@@ -123,6 +128,24 @@ def library() -> ctypes.CDLL:
     lib.tip_flash_attention_bwd_dkv.restype = i
     lib.tip_flash_attention_bwd_dkv.argtypes = [p] * 8 + [i, i, i, i, i, f, p]
     return lib
+
+
+def launch(index: int, fn, *args) -> int:
+    """``fn(*args, stream)`` on card ``index``: that card current, its
+    current stream last. The stream's raw handle and the current card are
+    read without building Python objects, which cost microseconds that a
+    training step's small launches feel."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -15,12 +15,15 @@ Replaces the Pallas TPU kernels of ``simple_tip_tpu/ops/flash_attention.py``:
 Layout is the JAX function's: q ``[B, Tq, H, dh]``, k and v
 ``[B, Tkv, H, dh]``, out and the gradients like their inputs; the
 log-sum-exp and ``D`` are ``[B, H, Tq]``. float32 throughout; ``dh <= 128``,
-any ``Tq`` and ``Tkv >= 1``. At the IMDB shapes (T=100, H=2, dh=32) all
-three are bound by operations, narrowly. The kernels
-(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) keep one
-block per (sequence-head, tile of 64 rows), walk the other side's tiles
-inside the block, read [B,T,H,dh] in place and mask ragged tiles; see the
-sources for the designs. The TPU kernels' 128-lane padding of T is gone.
+any ``Tq`` and ``Tkv >= 1``. The forward (``csrc/flash_attention_fwd.cu``)
+multiplies on the tensor cores in 3xTF32 (float32-accurate), one warp per
+16 query rows, persistent blocks walking (sequence-head, 128 queries)
+items with the next item's q, k and v loaded while this one computes; at
+the IMDB shapes (T=100, H=2, dh=32) it is bound by bytes. The backward
+(``csrc/flash_attention_bwd.cu``) keeps one block per (sequence-head, tile
+of 64 rows) on f32 FMAs and is bound by operations. All read [B,T,H,dh] in
+place and mask ragged tiles; see the sources for the designs. The TPU
+kernels' 128-lane padding of T is gone.
 
 ``flash_attention(q, k, v)`` is the entry point the models call: it goes
 through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
@@ -32,7 +35,7 @@ tensors. ``LAUNCHES`` (B4), ``BWD_DQ_LAUNCHES`` (B5) and
 ``BWD_DKV_LAUNCHES`` (B6) count kernel launches and nothing else.
 """
 
-import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -49,19 +52,20 @@ BLOCK_Q = 64  # query rows per tile of the backward
 MAX_HEAD_DIM = 128
 
 
+@functools.lru_cache(maxsize=None)
 def _scale(dh: int) -> float:
     """1/sqrt(dh) rounded to float32, as the TPU kernel's ``np.float32``."""
     return float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32))
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
         raise ValueError("flash attention takes q [B,Tq,H,dh] and k, v [B,Tkv,H,dh]")
-    b, _, h, dh = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, dh):
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if k.shape[1] == 0:
+    if ks[1] == 0:
         raise ValueError("flash attention needs at least one key")
+    if ks[0] != qs[0] or ks[2] != qs[2] or ks[3] != qs[3]:
+        raise ValueError(f"q {tuple(qs)} and k {tuple(ks)} disagree")
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -115,37 +119,39 @@ def flash_attention_plain(
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    # Lean on purpose: at a training step the kernel takes ~10 us, so each
+    # microsecond of host work here shows in the step's time.
     global LAUNCHES
     _check_shapes(q, k, v)
-    for t in (q, k, v):
-        if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("flash attention takes contiguous float32 tensors on one card")
+    index = q.get_device()
+    if not (k.get_device() == index == v.get_device() and q.dtype is k.dtype is v.dtype
+            is torch.float32 and q.is_contiguous() and k.is_contiguous()
+            and v.is_contiguous()):
+        raise ValueError("flash attention takes contiguous float32 tensors on one card")
     b, t_q, h, dh = q.shape
-    t_kv = k.shape[1]
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"flash attention takes head_dim <= {MAX_HEAD_DIM}, got {dh}")
     out = torch.empty_like(q)
-    lse = torch.empty(b, h, t_q, dtype=torch.float32, device=q.device)
+    lse = q.new_empty((b, h, t_q))
     if b * h * t_q == 0:
         return out, lse
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tip_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, t_q, t_kv, h, dh, ctypes.c_float(_scale(dh)), stream,
-        )
+    err = _build.launch(
+        index, _build.library().tip_flash_attention_fwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, t_q, k.shape[1], h, dh, _scale(dh),
+    )
     _build.check(err, "tip_flash_attention_fwd")
     LAUNCHES += 1
     return out, lse
 
 
-def _on(device: torch.device, kernel, plain, *args):
-    """``kernel(*args)`` for CUDA tensors, ``plain(*args)`` for CPU ones."""
-    if device.type == "cuda":
+def _on(x: torch.Tensor, kernel, plain, *args):
+    """``kernel(*args)`` where ``x`` is a CUDA tensor, ``plain(*args)`` where
+    it is a CPU one."""
+    if x.is_cuda:
         return kernel(*args)
-    if device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
     return plain(*args)
 
 
@@ -157,7 +163,7 @@ def flash_attention_fwd(
     CUDA tensors go through the kernel (or raise); CPU tensors through the
     plain version.
     """
-    return _on(q.device, _launch, flash_attention_plain, q, k, v)
+    return _on(q, _launch, flash_attention_plain, q, k, v)
 
 
 def _p_ds(qf, kf, vf, dof, lse, dvec, j0: int, t_kv: int, scale: float):
@@ -270,14 +276,11 @@ def _launch_dq(q, k, v, dout, lse, dvec):
     dq = torch.empty_like(q)
     if b * h * t_q == 0:
         return dq
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tip_flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dvec.data_ptr(), dq.data_ptr(), b, t_q, k.shape[1], h, dh,
-            ctypes.c_float(_scale(dh)), stream,
-        )
+    err = _build.launch(
+        q.get_device(), _build.library().tip_flash_attention_bwd_dq,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        dvec.data_ptr(), dq.data_ptr(), b, t_q, k.shape[1], h, dh, _scale(dh),
+    )
     _build.check(err, "tip_flash_attention_bwd_dq")
     BWD_DQ_LAUNCHES += 1
     return dq
@@ -290,14 +293,11 @@ def _launch_dkv(q, k, v, dout, lse, dvec):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if b * h * t_q == 0:
         return dk.zero_(), dv.zero_()
-    lib = _build.library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tip_flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t_q, k.shape[1], h, dh,
-            ctypes.c_float(_scale(dh)), stream,
-        )
+    err = _build.launch(
+        q.get_device(), _build.library().tip_flash_attention_bwd_dkv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t_q, k.shape[1], h, dh, _scale(dh),
+    )
     _build.check(err, "tip_flash_attention_bwd_dkv")
     BWD_DKV_LAUNCHES += 1
     return dk, dv
@@ -306,13 +306,13 @@ def _launch_dkv(q, k, v, dout, lse, dvec):
 def flash_bwd_dq(q, k, v, dout, lse, dvec) -> torch.Tensor:
     """dq (B5) from q, k, v, dO, lse and ``D``: the kernel for CUDA tensors
     (or raise), the plain version for CPU tensors."""
-    return _on(q.device, _launch_dq, flash_bwd_dq_plain, q, k, v, dout, lse, dvec)
+    return _on(q, _launch_dq, flash_bwd_dq_plain, q, k, v, dout, lse, dvec)
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, dvec) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` (B6) from q, k, v, dO, lse and ``D``: the kernel for
     CUDA tensors (or raise), the plain version for CPU tensors."""
-    return _on(q.device, _launch_dkv, flash_bwd_dkv_plain, q, k, v, dout, lse, dvec)
+    return _on(q, _launch_dkv, flash_bwd_dkv_plain, q, k, v, dout, lse, dvec)
 
 
 class FlashAttention(torch.autograd.Function):

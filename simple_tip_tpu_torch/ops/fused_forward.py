@@ -75,14 +75,12 @@ def _launch(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, 10, dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _build.sm_count(x.get_device())
     grid = min(b, sms * _BLOCKS_PER_SM)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tip_mnist_forward(
-            x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), b, grid, stream
-        )
+    err = _build.launch(
+        x.get_device(), _build.library().tip_mnist_forward,
+        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), b, grid,
+    )
     _build.check(err, "tip_mnist_forward")
     LAUNCHES += 1
     return out
@@ -147,14 +145,12 @@ def _launch_cifar10(fused: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Te
     out = torch.empty(b, 10, dtype=torch.float32, device=x.device)
     if b == 0:
         return out
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _build.sm_count(x.get_device())
     grid = min(-(-b // _CIFAR_TILE), sms * _BLOCKS_PER_SM)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tip_cifar10_forward(
-            x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), b, grid, stream
-        )
+    err = _build.launch(
+        x.get_device(), _build.library().tip_cifar10_forward,
+        x.data_ptr(), *[t.data_ptr() for t in ops], out.data_ptr(), b, grid,
+    )
     _build.check(err, "tip_cifar10_forward")
     CIFAR_LAUNCHES += 1
     return out

@@ -5,8 +5,10 @@ Counterpart of ``DSA`` and ``SurpriseCoverageMapper`` of the JAX package's
 nearest same-class training trace, over the distance from that training
 trace to its nearest other-class training trace (classes by the TEST
 sample's predicted label in both). Both nearest-neighbour searches go
-through ``ops/dsa_cuda.masked_nearest``: the CUDA kernel on the card, the
-chunked plain formulation on the CPU. The training subsample is the same
+through ``ops/dsa_cuda.masked_nearest``: the CUDA kernel on the card (over
+the class-sorted layout of the training rows, built once per ``DSA``, and
+one query plan per score call for its two searches), the chunked plain
+formulation on the CPU. The training subsample is the same
 seeded numpy draw as the JAX package's, so the same rows are kept.
 """
 
@@ -15,7 +17,9 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from simple_tip_tpu_torch.ops.dsa_cuda import masked_nearest
+from simple_tip_tpu_torch.ops.dsa_cuda import (
+    QueryPlan, class_layout, masked_nearest, plan_queries, worth_planning,
+)
 
 Activations = Union[Sequence[torch.Tensor], torch.Tensor]
 
@@ -132,12 +136,25 @@ class DSA:
         self.rows = (train - self.mean).contiguous()
         self.rows_sq = (self.rows * self.rows).sum(dim=1)
         self.train_labels = torch.as_tensor(labels, dtype=torch.int32, device=train.device)
+        # the kernel's class-sorted copy of the rows (the CPU's plain search needs none)
+        self.layout = (class_layout(self.rows, self.rows_sq, self.train_labels)
+                       if self.rows.is_cuda else None)
         self.badge_size = badge_size
 
-    def nearest(self, x: torch.Tensor, labels: torch.Tensor, want_same: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    def nearest(self, x: torch.Tensor, labels: torch.Tensor, want_same: bool,
+                queries=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(min d2, argmin) of centred queries ``x`` against the class-masked
-        centred training rows."""
-        return masked_nearest(x, labels, self.rows, self.rows_sq, self.train_labels, want_same)
+        centred training rows (``queries``: their ``query_plan``)."""
+        return masked_nearest(x, labels, self.rows, self.rows_sq, self.train_labels, want_same,
+                              self.layout, queries)
+
+    def query_plan(self, host_labels: np.ndarray) -> Optional[QueryPlan]:
+        """The ``plan_queries`` that both searches of a score call of queries
+        with these labels share, or None (the kernel walks every tile): on the
+        CPU, and where the searches are too small to repay a plan."""
+        if self.layout is None or not worth_planning(len(host_labels), *self.rows.shape):
+            return None
+        return plan_queries(host_labels, self.layout, self.rows.device)
 
     def _distance(self, x: torch.Tensor, d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """The distance from ``x`` to its nearest row ``idx``, recomputed as
@@ -145,10 +162,11 @@ class DSA:
         exact = (x - self.rows.index_select(0, idx.long())).square().sum(dim=1).sqrt()
         return torch.where(torch.isinf(d2), d2, exact)
 
-    def _score(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        a2, a_idx = self.nearest(x, labels, want_same=True)
+    def _score(self, x: torch.Tensor, labels: torch.Tensor, host_labels: np.ndarray) -> torch.Tensor:
+        queries = self.query_plan(host_labels)
+        a2, a_idx = self.nearest(x, labels, True, queries)
         closest = self.rows.index_select(0, a_idx.long())
-        b2, b_idx = self.nearest(closest, labels, want_same=False)
+        b2, b_idx = self.nearest(closest, labels, False, queries)
         return self._distance(x, a2, a_idx) / self._distance(closest, b2, b_idx)
 
     def traces(self, activations: Activations) -> torch.Tensor:
@@ -158,12 +176,12 @@ class DSA:
     def __call__(self, activations: Activations, predictions) -> np.ndarray:
         """DSA of each test trace (float64, like the JAX package's)."""
         x = self.traces(activations)
-        labels = torch.as_tensor(
-            _class_predictions(predictions), dtype=torch.int32, device=x.device
-        )
+        host_labels = _class_predictions(predictions)
+        labels = torch.as_tensor(host_labels, dtype=torch.int32, device=x.device)
         chunk = self.badge_size or max(1, x.shape[0])
         parts = [
-            self._score(x[start : start + chunk], labels[start : start + chunk])
+            self._score(x[start : start + chunk], labels[start : start + chunk],
+                        host_labels[start : start + chunk])
             for start in range(0, x.shape[0], chunk)
         ]
         dsa = torch.cat(parts) if parts else x.new_zeros(0)

@@ -72,6 +72,103 @@ def test_dsa_nearest_kernel_matches_plain(cuda_device, n_query, n_train, dim):
     assert int(dsa_cuda.masked_nearest(*args, True)[1][0]) == 3
 
 
+def _layout_case(name: str):
+    """(x, x_labels, train, labels) as numpy for one class-layout case at the
+    kernel's real 128 x 128 tile. Integer-valued features (more than the
+    kernel's 32 few-feature limit, so on the tensor cores) make every
+    product exact in 3xTF32, so ties are exact and the lowest original index
+    must win."""
+    rng = np.random.default_rng(len(name))
+    if name == "ties_across_a_class_boundary":
+        labels = np.repeat([0, 1, 2], [130, 200, 300])
+        train = rng.integers(0, 3, size=(630, 40))
+        train[[129, 130, 400]] = train[7]  # one row in classes 0, 0, 1 and 2
+        perm = rng.permutation(630)
+        train, labels = train[perm], labels[perm]
+        x = rng.integers(0, 3, size=(300, 40))
+        x[:150] = train[perm.argsort()[7]]
+        x_labels = np.where(np.arange(300) < 200, 2, 0)
+    elif name == "a_class_without_training_rows":
+        labels = rng.integers(0, 4, size=500)
+        labels[labels == 2] = 3
+        train = rng.integers(0, 4, size=(500, 36))
+        x_labels = rng.integers(0, 4, size=300)
+        x = rng.integers(0, 4, size=(300, 36))
+    elif name == "a_class_filling_whole_tiles":
+        labels = np.repeat([0, 1, 2], [256, 128, 77])
+        rng.shuffle(labels)
+        train = rng.integers(0, 3, size=(461, 48))
+        x_labels = np.repeat([1, 0, 2], [128, 256, 50])
+        x = rng.integers(0, 3, size=(434, 48))
+    elif name == "rows_not_a_multiple_of_the_tile":
+        labels = rng.integers(0, 5, size=1000)
+        train = rng.integers(0, 3, size=(1000, 37))  # D padded to 40 on the card
+        x_labels = rng.integers(0, 5, size=333)
+        x = rng.integers(0, 3, size=(333, 37))
+    elif name == "few_features_close_together":
+        # IMDB-like: 20 features, traces near one point, so the float32
+        # expansion's rounding decides the nearest row; the few-feature path
+        # sums as the plain version does and must pick the same rows
+        labels = rng.integers(0, 2, size=3000)
+        train = 2.0 + rng.normal(0, 0.02, size=(3000, 20))
+        x_labels = rng.integers(0, 2, size=500)
+        x = 2.0 + rng.normal(0, 0.02, size=(500, 20))
+    else:  # "mnist_like": 2,000 x 1,600 uniform features, 10 classes
+        labels = rng.integers(0, 10, size=2000)
+        train = rng.random((2000, 1600))
+        x_labels = rng.integers(0, 10, size=700)
+        x = rng.random((700, 1600))
+    return x.astype(np.float32), x_labels, train.astype(np.float32), labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "ties_across_a_class_boundary", "a_class_without_training_rows",
+    "a_class_filling_whole_tiles", "rows_not_a_multiple_of_the_tile",
+    "few_features_close_together", "mnist_like",
+])
+def test_dsa_nearest_kernel_with_a_class_layout_matches_plain(cuda_device, case):
+    x, x_labels, train, labels = _layout_case(case)
+    train = torch.from_numpy(train).to(cuda_device)
+    train_sq = (train * train).sum(1)
+    train_labels = torch.as_tensor(labels, dtype=torch.int32, device=cuda_device)
+    layout = dsa_cuda.class_layout(train, train_sq, train_labels)
+    args = (torch.from_numpy(x).to(cuda_device),
+            torch.as_tensor(x_labels, dtype=torch.int32, device=cuda_device),
+            train, train_sq, train_labels)
+    planned = dsa_cuda.plan_queries(x_labels, layout, cuda_device)
+    for queries in (planned, None):  # the planned walk, then the full walk
+        for want_same in (True, False):
+            before = dsa_cuda.LAUNCHES
+            got_min, got_arg = dsa_cuda.masked_nearest(*args, want_same, layout, queries)
+            torch.cuda.synchronize()
+            assert dsa_cuda.LAUNCHES == before + 1
+            want_min, want_arg = dsa_cuda.masked_nearest_plain(*args, want_same)
+            torch.testing.assert_close(got_min, want_min, rtol=1e-4, atol=1e-4)
+            assert torch.equal(got_arg, want_arg)
+
+
+@pytest.mark.cuda
+def test_dsa_nearest_kernel_refuses_a_plan_of_another_tile(cuda_device, monkeypatch):
+    """The kernel walks 128 x 128 tiles; a plan made for any other tile
+    raises instead of returning the minima of the wrong rows."""
+    x, x_labels, train, labels = _layout_case("rows_not_a_multiple_of_the_tile")
+    train = torch.from_numpy(train).to(cuda_device)
+    train_sq = (train * train).sum(1)
+    train_labels = torch.as_tensor(labels, dtype=torch.int32, device=cuda_device)
+    layout = dsa_cuda.class_layout(train, train_sq, train_labels)
+    monkeypatch.setattr(dsa_cuda, "BLOCK_QUERIES", 64)
+    queries = dsa_cuda.plan_queries(x_labels, layout, cuda_device)
+    monkeypatch.undo()
+    args = (torch.from_numpy(x).to(cuda_device),
+            torch.as_tensor(x_labels, dtype=torch.int32, device=cuda_device),
+            train, train_sq, train_labels, True, layout, queries)
+    before = dsa_cuda.LAUNCHES
+    with pytest.raises(RuntimeError):
+        dsa_cuda.masked_nearest(*args)
+    assert dsa_cuda.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 5, 300, 1001])
 def test_cifar10_forward_kernel_matches_plain(cuda_device, batch):
@@ -93,6 +190,7 @@ def test_cifar10_forward_kernel_matches_plain(cuda_device, batch):
     [
         ((2, 128, 4, 16), 128),
         ((1, 100, 2, 32), 100),
+        ((8, 100, 2, 32), 100),  # IMDB: every key in one chunk, 7 of 8 query tiles busy
         ((2, 300, 2, 8), 300),
         ((1, 17, 1, 4), 17),
         ((1, 40, 2, 8), 200),
