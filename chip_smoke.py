@@ -50,7 +50,9 @@ Needs one CUDA card; exits non-zero without one (and without the
      training step [32, 100, 2, 32], on
      a ragged [4, 300, 2, 8] and at dh=128 [4, 200, 2, 128]; timed at the
      training step and at [8192, 100, 2, 32] (library: the backward of
-     ``scaled_dot_product_attention``, dq, dk and dv together);
+     ``scaled_dot_product_attention``, dq, dk and dv together), each also
+     replayed from a CUDA graph (the card alone) and by the host's own time
+     per eager call;
    - the IMDB gradients through ``FlashAttention`` at full width (one batch
      of 32, every parameter, ``train=False``) on the card against the CPU
      within rtol 2e-4 / atol 2e-5 (atol cut per leaf to 2e-4 of its largest
@@ -69,8 +71,8 @@ Needs one CUDA card; exits non-zero without one (and without the
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does its products (``UNITS``): float32 FMAs at
-67 TF/s for B1, B3, B5 and B6; 3xTF32 on the tensor cores (three TF32
-products at 495 TF/s) for B2 and B4.
+67 TF/s for B1 and B3; 3xTF32 on the tensor cores (three TF32 products at
+495 TF/s) for B2, B4, B5 and B6.
 
 Prints the card's name and power limit, per-run training records, per-path
 seconds, one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -291,16 +293,18 @@ def host_ms(fn, reps: int) -> float:
     return took * 1e3 / reps
 
 
-def graph_ms(fn, reps: int) -> float:
+def graph_ms(fn, reps: int, stream=None) -> float:
     """Mean milliseconds of ``fn()`` replayed from one CUDA graph of ``reps``
-    calls: the card's time alone, without the host's cost of each launch."""
-    side = torch.cuda.Stream()
+    calls: the card's time alone, without the host's cost of each launch.
+    Captured on ``stream`` where given (a backward must be captured on the
+    stream of its forward), else on a new one."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -611,6 +615,10 @@ def check_flash_attention(params, tokens: np.ndarray, dev, seed: int) -> dict:
     }
 
 
+# The card-alone and host times of B5/B6 and the SDPA backward, per entry.
+TIMES = ("device_ms", "host_ms", "library_device_ms", "library_host_ms", "library_graph_error")
+
+
 def _bwd_close(got, want, what: str) -> tuple:
     """(max |got - want|, that over max |want|); raises unless |got - want|
     <= atol + 1e-4 |want| with atol = min(1e-5, 1e-4 max |want|), so the
@@ -644,10 +652,48 @@ def imdb_step_tensors(net, tokens: np.ndarray, labels: np.ndarray, dev):
     return q, k, v, (dout / dout.pow(2).mean().sqrt()).contiguous()
 
 
+def sdpa_backward_times(q, k, v, dout, reps: int) -> dict:
+    """Times of the backward of ``scaled_dot_product_attention`` (dq, dk and
+    dv together) on [B, T, H, dh] inputs: eager (CUDA events), the host's
+    time per eager call, and replayed from a CUDA graph. The forward runs on
+    a side stream, so that its backward runs and is captured there. A
+    capture that fails is recorded in the result (it is the yardstick, not a
+    check)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh)
+        doh = dout.permute(0, 2, 1, 3).contiguous()
+
+        def library():
+            return torch.autograd.grad(sdpa, (qh, kh, vh), doh, retain_graph=True)
+
+        rec = {"library_ms": cuda_ms(library, reps), "library_host_ms": host_ms(library, reps)}
+        try:
+            rec["library_device_ms"] = graph_ms(library, 20, side)
+        except RuntimeError as exc:
+            rec["library_device_ms"] = None
+            rec["library_graph_error"] = str(exc)[:500]
+    torch.cuda.current_stream().wait_stream(side)
+    return rec
+
+
+def _bwd_times(kernel, plain, args, reps: int) -> dict:
+    """A backward kernel's eager time, its plain version's, the card's time
+    alone (replayed from a CUDA graph) and the host's own time per eager
+    call, on ``args``."""
+    return {"ms": cuda_ms(lambda: kernel(*args), reps),
+            "plain_ms": cuda_ms(lambda: plain(*args), 3),
+            "device_ms": graph_ms(lambda: kernel(*args), 20),
+            "host_ms": host_ms(lambda: kernel(*args), reps)}
+
+
 def check_flash_backward(params, data, dev, seed: int) -> list:
     """B5 and B6 against their plain versions on a real IMDB training step
     (the batch of 32 and its dO), a ragged [4, 300, 2, 8] and dh=128
-    [4, 200, 2, 128]; timed at the step and at [8192, 100, 2, 32], with
+    [4, 200, 2, 128]; timed at the step and at [8192, 100, 2, 32] (eager,
+    replayed from a CUDA graph, and the host's time per eager call), with
     B4 beside them (``fwd_ms``) for the training step's breakdown."""
     net = _module("imdb", params, dev)
     (x_tr, y_tr), _, _ = data
@@ -681,12 +727,8 @@ def check_flash_backward(params, data, dev, seed: int) -> list:
         err["dkv"] = max(err["dkv"], close["dk"][0], close["dv"][0])
         if name not in ("step", "timing"):
             continue
-        qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous().requires_grad_() for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qh, kh, vh)
-        doh = dout.permute(0, 2, 1, 3).contiguous()
         reps = 20 if name == "step" else 5
-        library_ms = cuda_ms(
-            lambda: torch.autograd.grad(sdpa, (qh, kh, vh), doh, retain_graph=True), reps)
+        library = sdpa_backward_times(q, k, v, dout, reps)
         b, t, h, dh = q.shape
         pairs = b * h * t * t * dh  # one product is 2 * pairs FLOPs
         io = 4 * b * t * h * dh  # bytes of one [B, T, H, dh] array
@@ -694,14 +736,12 @@ def check_flash_backward(params, data, dev, seed: int) -> list:
         timed[name] = {
             "shape": [b, t, h, dh],
             "fwd_ms": cuda_ms(lambda: flash_attention.flash_attention_fwd(q, k, v), reps),
-            "dq": {"ms": cuda_ms(lambda: flash_attention.flash_bwd_dq(*args), reps),
-                   "plain_ms": cuda_ms(lambda: flash_attention.flash_bwd_dq_plain(*args), 3),
-                   "library_ms": library_ms,
-                   "bound": bound_ms(3 * 2 * pairs, 5 * io + rows)},
-            "dkv": {"ms": cuda_ms(lambda: flash_attention.flash_bwd_dkv(*args), reps),
-                    "plain_ms": cuda_ms(lambda: flash_attention.flash_bwd_dkv_plain(*args), 3),
-                    "library_ms": library_ms,
-                    "bound": bound_ms(4 * 2 * pairs, 6 * io + rows)},
+            "dq": {**_bwd_times(flash_attention.flash_bwd_dq, flash_attention.flash_bwd_dq_plain,
+                                args, reps),
+                   "bound": bound_ms(3 * 2 * pairs, 5 * io + rows, "3xtf32"), **library},
+            "dkv": {**_bwd_times(flash_attention.flash_bwd_dkv,
+                                 flash_attention.flash_bwd_dkv_plain, args, reps),
+                    "bound": bound_ms(4 * 2 * pairs, 6 * io + rows, "3xtf32"), **library},
         }
     print(json.dumps({"flash_backward_relative_err": rel}))
     print(json.dumps({"flash_backward_timed": timed}))
@@ -721,11 +761,13 @@ def check_flash_backward(params, data, dev, seed: int) -> list:
             "plain_ms": step["plain_ms"],
             "bound_ms": step["bound"][0],
             "bound_by": step["bound"][1],
-            "bound_unit": UNITS["f32"][1],
+            "bound_unit": UNITS["3xtf32"][1],
             "library_ms": step["library_ms"],
+            **{t: step[t] for t in TIMES if t in step},
             "at_8192": {"ms": big["ms"], "plain_ms": big["plain_ms"],
                         "bound_ms": big["bound"][0], "bound_by": big["bound"][1],
-                        "library_ms": big["library_ms"]},
+                        "library_ms": big["library_ms"],
+                        **{t: big[t] for t in TIMES if t in big}},
         })
     return entries
 

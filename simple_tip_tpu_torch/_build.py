@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own ``nvcc``
 process, all started together, and the objects are linked into one shared
 library with a plain C interface. Nothing includes PyTorch's headers, so a
-build takes seconds. The library lands in ``.torch_kernels/<hash>/`` at the
+build takes under a minute. The library lands in ``.torch_kernels/<hash>/`` at the
 root of the checkout (listed in ``.gitignore``), keyed by a hash of the
-sources, and is built at first use: importing this module builds nothing.
+sources and of the headers they include (``csrc/*.cuh``), and is built at
+first use: importing this module builds nothing.
 ``-Xptxas -v`` reports (registers, shared memory, spills) are kept in
 ``build.log`` beside the library. ``launch`` calls an entry point on a
 card's current stream, the last argument of every entry point.
@@ -35,6 +36,10 @@ def _sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -56,7 +61,7 @@ def _digest(sources) -> str:
 
 def library_path() -> str:
     """Where the library for the current sources lives (built or not)."""
-    return os.path.join(BUILD_ROOT, _digest(_sources()), "libtip_kernels.so")
+    return os.path.join(BUILD_ROOT, _digest(_sources() + _headers()), "libtip_kernels.so")
 
 
 def build() -> str:

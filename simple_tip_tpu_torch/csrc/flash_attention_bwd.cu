@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32: kernels B5 (dq)
-// and B6 (dk, dv).
+// Flash-attention backward for Hopper (sm_90a), float32-accurate products on
+// the tensor cores: kernels B5 (dq) and B6 (dk, dv).
 //
 // Replace the Pallas TPU kernels simple_tip_tpu/ops/flash_attention.py
 // `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (launched by
@@ -14,307 +14,555 @@
 // [B,Tq,H,dh], dk and dv [B,Tkv,H,dh]. dh <= 128, any Tq >= 1, Tkv >= 1.
 //
 // What bounds them on this card: per sequence-head B5 does three products
-// of 2*Tq*Tkv*dh FLOPs (scores, dO.v^T, ds.k) and B6 four (scores, dO.v^T,
-// p^T.dO, ds^T.q), against reading q, k, v and dO once and writing one or
-// two gradients; at the IMDB shape (T=100, dh=32) that is 6.4 and 8.5
-// FLOPs a byte, so float32 operations bound both (67 TFLOP/s against
-// 3.35 TB/s).
+// of 2*Tq*Tkv*dh FLOPs (q.k^T, dO.v^T, ds.k) and B6 four (k.q^T, v.dO^T,
+// p^T.dO, ds^T.q). On the tensor cores in 3xTF32 (three TF32 products at
+// 495 TF/s) that is below the ridge point at the IMDB shape (T=100,
+// dh=32), so bytes bound both: q, k, v, dO, lse and D read once, dq (B5)
+// or dk and dv (B6) written once.
 //
-// What the design does: the TPU kernels carried their accumulators in VMEM
-// scratch across a sequential grid axis. Blocks run in parallel here, so
-// each kernel walks the other side's tiles inside the block and keeps its
-// accumulators in registers, and neither needs atomics:
-// - B5: one block per (sequence*head, tile of 64 queries), 8 warps of 8
-//   query rows. q, dO, lse and D of the tile are staged once; every tile
-//   of 64 keys is staged in shared memory (K and V with a padded row stride,
-//   so lanes reading different keys hit different banks). Each lane scores
-//   two keys for the warp's 8 rows (q and dO rows are warp-wide broadcasts),
-//   writes ds to a per-warp buffer, and accumulates up to 4 of the dh
-//   columns of dq for the 8 rows.
-// - B6: one block per (sequence*head, tile of 64 keys), 8 warps of 8 keys.
-//   K and V of the tile are staged once; every tile of 64 queries (q and dO
-//   with a padded stride, lse, D) is staged in turn. Each lane takes two
-//   queries for the warp's 8 keys, writes p and ds to per-warp buffers, and
-//   accumulates up to 4 columns of dk and of dv for the 8 keys.
-// The layout [B,T,H,dh] is read in place (no fold copies). Query rows past
-// Tq get p = 0 explicitly (their lse is not defined), so they add nothing
-// to dk or dv; keys past Tkv get p = 0 as the forward's -1e30 mask gives.
-//
-// This is the simple, exact version; mma.sync/wgmma products are later work.
+// What the design does:
+// - Work items are (sequence-head, block of own rows): B5 owns queries and
+//   streams keys, B6 owns keys and streams queries. A persistent block walks
+//   its items; each item is one or more chunks of streamed rows. The block
+//   loads the next chunk (and, at an item's first chunk, the next item's own
+//   rows) with cp.async into the other half of a two-stage ring while it
+//   computes this one. Own rows are double-buffered by item, streamed rows
+//   by step. Where the whole streamed side fits a chunk (T=100 at dh=32) it
+//   is loaded once per sequence-head.
+// - A warp owns a 16-row m-tile of own rows and walks the chunk's 8-row
+//   n-tiles of streamed rows, keeping its gradient rows in registers (up to
+//   255 a thread; 8 warps for 128 own rows, 4 for 64 at dh 128; one block
+//   an SM). T=100 computes 112 own rows (7 of 8 warps busy) against 104
+//   streamed rows (13 n-tiles), not 128 x 128. The n-tiles run in sub-tiles
+//   of up to SUB, each sub-tile length compiled without a branch, so the
+//   warp's independent products interleave. (Two warps a tile, each with
+//   half the n-tiles and 128 registers, measured 12-13% slower.)
+// - Every product runs as mma.sync.m16n8k8 TF32 with each f32 operand split
+//   into TF32 high and low parts (3xTF32): float32-level error. Each 8-deep
+//   k-step is summed from zero and added to the running f32 sum (the tensor
+//   cores round toward zero). The streamed operands (B operands of every
+//   product) are split once per chunk in shared memory for all warps; the
+//   own rows (A operands of the score products) belong to one warp and are
+//   split in registers as it reads them.
+// - B5: s = q.k^T and dP = dO.v^T come out in the accumulator layout (rows
+//   = queries g and g + 8 of each lane); ds is built there from lse and D of
+//   those rows and feeds dq += ds.k as the A operand, K's rows read in the
+//   matching order (keys 2t and 2t + 1 of each 8-key step).
+// - B6: the scores are computed transposed, s^T = k.q^T and dP^T = v.dO^T,
+//   so p^T and ds^T are in the accumulator layout with keys as rows (lse and
+//   D read per column, the query pair 2t, 2t + 1) and feed dv += p^T.dO and
+//   dk += ds^T.q as A operands in the same way.
+// - Keys past Tkv get p = 0 (the forward's -1e30 mask), query rows past Tq
+//   get p = 0 (their lse is not defined). Rows past T and the head-dim tail
+//   are zero-filled by cp.async in shared memory. Rows are padded to
+//   dh_pad + 4 floats, so every fragment load is conflict-free.
+// - Gradients go back through shared memory in coalesced (16-byte where
+//   dh % 4 == 0 and the pointers allow) row stores. No atomics: every
+//   result is summed in one order, the same on every run.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 8;                 // rows (B5: queries, B6: keys) per warp
-constexpr int kTile = kWarps * kRows;    // 64 rows owned by a block
-constexpr int kStream = 64;              // rows per streamed tile (two per lane)
-constexpr int kMaxDh = 128;              // four columns per lane
-constexpr int kThreads = kWarps * 32;
+constexpr int kMaxDh = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// B5: dq for one tile of queries, walking every tile of keys.
-__global__ void __launch_bounds__(kThreads)
+template <int DHP>
+struct Cfg {
+  static constexpr int kStride = DHP + 4;  // floats a padded row
+  static constexpr int kRows = DHP <= 64 ? 128 : 64;  // own rows an item
+  static constexpr int kThreads = kRows / 16 * 32;    // a warp per m16 tile
+  static constexpr int kChunk = DHP <= 8 ? 512 : DHP <= 16 ? 256 : DHP <= 32 ? 128
+                              : DHP <= 64 ? 32 : 16;  // streamed rows a step
+  // Own part, one per item parity: two arrays of kRows rows, then (B5) lse
+  // and D of the rows. Streamed part, one per step parity: two arrays of
+  // kChunk rows (their TF32 high parts once split), then (B6) lse and D of
+  // the rows. One low-part buffer for the streamed arrays of this step.
+  static constexpr int kOwnFloats = 2 * kRows * kStride + 2 * kRows;
+  static constexpr int kStreamFloats = 2 * kChunk * kStride + 2 * kChunk;
+  static constexpr int kLoFloats = 2 * kChunk * kStride;
+  static constexpr int kSmemBytes =
+      static_cast<int>(sizeof(float)) * (2 * kOwnFloats + 2 * kStreamFloats + kLoFloats);
+  static_assert(kSmemBytes <= 232448, "shared memory");
+};
+
+// Rows [0, n) of a tile (src at its first row, `row` floats between rows)
+// into shared rows of kStride floats: rows at or past `valid` and columns at
+// or past dh are zero-filled.
+template <int DHP, int kThreads>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int n, int valid,
+                                          size_t row, int dh, bool vec, int tid) {
+  constexpr int S = DHP + 4;
+  if (vec) {
+    constexpr int P = DHP / 4;  // 16-byte pieces a padded row
+    for (int l = tid; l < n * P; l += kThreads) {
+      const int r = l / P, c = (l % P) * 4;
+      const bool ok = r < valid && c < dh;
+      cp_async16(dst + r * S + c, ok ? src + static_cast<size_t>(r) * row + c : src, ok);
+    }
+  } else {
+    for (int l = tid; l < n * DHP; l += kThreads) {
+      const int r = l / DHP, c = l % DHP;
+      const bool ok = r < valid && c < dh;
+      cp_async4(dst + r * S + c, ok ? src + static_cast<size_t>(r) * row + c : src, ok);
+    }
+  }
+}
+
+// Values [0, n) of a [B*H, T] row vector, zero past `valid`.
+template <int kThreads>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int n, int valid, int tid) {
+  for (int r = tid; r < n; r += kThreads) cp_async4(dst + r, r < valid ? src + r : src, r < valid);
+}
+
+// Splits rows [0, rows) of the two streamed arrays (high parts in place,
+// low parts to lo), and scales the row vector lse (if any) to base 2.
+template <int DHP, int kThreads>
+__device__ __forceinline__ void split_chunk(float* st, float* lo, int rows, float* lse2, int tid) {
+  constexpr int S = DHP + 4, CK = Cfg<DHP>::kChunk;
+  const int used = rows * S;
+  for (int e = tid; e < 2 * used; e += kThreads) {
+    const int at = e < used ? e : e - used + CK * S;
+    uint32_t hi, low;
+    split_tf32(st[at], hi, low);
+    st[at] = __uint_as_float(hi);
+    lo[at] = __uint_as_float(low);
+  }
+  if (lse2 != nullptr)
+    for (int r = tid; r < rows; r += kThreads) lse2[r] *= kLog2e;
+}
+
+// The A fragment (hi, lo) of rows g and g + 8, k-step kk, of a 16-row tile
+// at w (kStride floats a row).
+template <int DHP>
+__device__ __forceinline__ void a_frag(const float* w, int kk, int g, int t4, uint32_t* hi,
+                                       uint32_t* lo) {
+  constexpr int S = DHP + 4;
+  const float* ap = w + g * S + 8 * kk + t4;
+  split_tf32(ap[0], hi[0], lo[0]);
+  split_tf32(ap[8 * S], hi[1], lo[1]);
+  split_tf32(ap[4], hi[2], lo[2]);
+  split_tf32(ap[8 * S + 4], hi[3], lo[3]);
+}
+
+// f(std::integral_constant<int, n>) for the runtime n in [1, N]: a sub-tile
+// of every length gets its own unrolled code without a branch inside, so
+// the compiler can interleave its independent products.
+template <int N, class F>
+__device__ __forceinline__ void with_count(int n, F&& f) {
+  if constexpr (N > 1) {
+    if (n < N) {
+      with_count<N - 1>(n, f);
+      return;
+    }
+  }
+  f(std::integral_constant<int, N>{});
+}
+
+// The two score products of n-tiles j0 .. j0 + N - 1: x[i] = A1.B1^T and
+// y[i] = A2.B2^T, A1 and A2 the warp's 16 own rows (split here), B1 and B2
+// the streamed rows (split in shared memory, low parts `lo` floats on).
+template <int DHP, int N>
+__device__ __forceinline__ void score_tiles(float (*x)[4], float (*y)[4], const float* a1,
+                                            const float* a2, const float* b1, const float* b2,
+                                            int lo, int j0, int g, int t4) {
+  constexpr int S = DHP + 4, NT = DHP / 8;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = y[i][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    a_frag<DHP>(a1, kk, g, t4, a_hi, a_lo);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float* bp = b1 + (8 * (j0 + i) + g) * S + 8 * kk + t4;
+      mma_3xtf32(x[i], a_hi, a_lo, bp, bp + lo, 4);
+    }
+    a_frag<DHP>(a2, kk, g, t4, a_hi, a_lo);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float* bp = b2 + (8 * (j0 + i) + g) * S + 8 * kk + t4;
+      mma_3xtf32(y[i], a_hi, a_lo, bp, bp + lo, 4);
+    }
+  }
+}
+
+// acc[dn] += x.B over one 8-row k-step: x (16 x 8) in accumulator layout,
+// B's rows at bh (high parts; low parts `lo` floats further), its 8-row step
+// starting at the row of the k-step.
+template <int DHP>
+__device__ __forceinline__ void acc_product(float (*acc)[4], const float* x, const float* bh,
+                                            int lo, int g, int t4) {
+  constexpr int S = DHP + 4, NT = DHP / 8;
+  uint32_t a_hi[4], a_lo[4];
+  split_tf32(x[0], a_hi[0], a_lo[0]);
+  split_tf32(x[2], a_hi[1], a_lo[1]);
+  split_tf32(x[1], a_hi[2], a_lo[2]);
+  split_tf32(x[3], a_hi[3], a_lo[3]);
+  const float* bp = bh + 2 * t4 * S + g;
+#pragma unroll
+  for (int dn = 0; dn < NT; ++dn) mma_3xtf32(acc[dn], a_hi, a_lo, bp + 8 * dn, bp + lo + 8 * dn, S);
+}
+
+// The item's end: a warp writes its tile's sums times `mult` to rows
+// [0, rows) at `out`, staged through `stage` (the tile's own rows in shared
+// memory, which only this warp reads and has consumed) for coalesced stores.
+template <int DHP>
+__device__ __forceinline__ void store_tile(float (*acc)[4], float* stage, int lane, float mult,
+                                           float* out, int rows, size_t row, int dh, bool vec) {
+  constexpr int S = DHP + 4, NT = DHP / 8;
+  const int g = lane / 4, t4 = lane % 4;
+  __syncwarp();  // every lane has read the tile's own rows
+#pragma unroll
+  for (int dn = 0; dn < NT; ++dn) {
+    float* op = stage + g * S + 8 * dn + 2 * t4;
+    op[0] = acc[dn][0] * mult;
+    op[1] = acc[dn][1] * mult;
+    op[8 * S] = acc[dn][2] * mult;
+    op[8 * S + 1] = acc[dn][3] * mult;
+  }
+  __syncwarp();
+  if (vec) {
+    const int P = dh / 4;
+    for (int e = lane; e < rows * P; e += 32) {
+      const int r = e / P, c = (e % P) * 4;
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * row + c) =
+          *reinterpret_cast<const float4*>(stage + r * S + c);
+    }
+  } else {
+    for (int e = lane; e < rows * dh; e += 32) {
+      const int r = e / dh, c = e % dh;
+      out[static_cast<size_t>(r) * row + c] = stage[r * S + c];
+    }
+  }
+}
+
+// B5: dq. Items are (sequence-head, kRows queries); keys are streamed.
+template <int DHP, int SUB>
+__global__ void __launch_bounds__(Cfg<DHP>::kThreads, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dvec,
-                    float* __restrict__ dq, int t_q, int t_kv, int heads, int dh,
-                    float scale) {
-  extern __shared__ float smem[];
-  const int ks = dh + 1;                    // padded K / V row stride
-  float* qs = smem;                         // [kTile][dh]
-  float* dos = qs + kTile * dh;             // [kTile][dh]
-  float* kt = dos + kTile * dh;             // [kStream][dh + 1]
-  float* vt = kt + kStream * ks;            // [kStream][dh + 1]
-  float* dsb = vt + kStream * ks;           // [kWarps][kRows][kStream]
-  float* lse_s = dsb + kWarps * kRows * kStream;  // [kTile]
-  float* d_s = lse_s + kTile;               // [kTile]
-
-  const int g = blockIdx.x;  // b * heads + h
-  const int b = g / heads, h = g % heads;
-  const int q0 = blockIdx.y * kTile;
+                    float* __restrict__ dq, int n_items, int blocks, int t_q, int t_kv,
+                    int heads, int dh, float scale, bool vec) {
+  using C = Cfg<DHP>;
+  constexpr int S = C::kStride, CK = C::kChunk, R = C::kRows, NT = DHP / 8;
+  constexpr int kThreads = C::kThreads;
+  const float scale2 = scale * kLog2e;  // scores in base 2: exp2 is one MUFU op
+  extern __shared__ __align__(16) float smem[];
+  float* const own_base = smem;
+  float* const stream_base = smem + 2 * C::kOwnFloats;
+  float* const lo_base = stream_base + 2 * C::kStreamFloats;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t row = static_cast<size_t>(heads) * dh;  // stride between positions
-  const size_t q_base = (static_cast<size_t>(b) * t_q * heads + h) * dh;
-  const size_t kv_base = (static_cast<size_t>(b) * t_kv * heads + h) * dh;
+  const int g = lane / 4, t4 = lane % 4;
+  const int tile = warp;  // the warp's m16 tile of own rows
+  const int n_chunks = (t_kv + CK - 1) / CK;
+  const int my_items =
+      n_items > static_cast<int>(blockIdx.x) ? (n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_steps = my_items * n_chunks;
+  const size_t row = static_cast<size_t>(heads) * dh;  // floats between positions
 
-  for (int i = tid; i < kTile * dh; i += kThreads) {
-    const int r = i / dh, d = i % dh;
-    const bool ok = q0 + r < t_q;
-    const size_t off = q_base + (q0 + r) * row + d;
-    qs[i] = ok ? q[off] : 0.f;
-    dos[i] = ok ? dout[off] : 0.f;
-  }
-  for (int r = tid; r < kTile; r += kThreads) {
-    const bool ok = q0 + r < t_q;
-    lse_s[r] = ok ? lse[static_cast<size_t>(g) * t_q + q0 + r] : 0.f;
-    d_s[r] = ok ? dvec[static_cast<size_t>(g) * t_q + q0 + r] : 0.f;
-  }
-
-  float acc[kRows][4];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  const float* qw = qs + warp * kRows * dh;
-  const float* dow = dos + warp * kRows * dh;
-  float* dsw = dsb + warp * kRows * kStream;
-
-  for (int j0 = 0; j0 < t_kv; j0 += kStream) {
-    __syncthreads();  // the previous tile is consumed (and the q tile is staged)
-    for (int i = tid; i < kStream * dh; i += kThreads) {
-      const int r = i / dh, d = i % dh;
-      const bool ok = j0 + r < t_kv;
-      const size_t off = kv_base + (j0 + r) * row + d;
-      kt[r * ks + d] = ok ? k[off] : 0.f;
-      vt[r * ks + d] = ok ? v[off] : 0.f;
+  // Step f of this block: its item f / n_chunks, chunk f % n_chunks.
+  auto load = [&](int f) {
+    if (f < n_steps) {
+      const int mine = f / n_chunks, chunk = f % n_chunks;
+      const int item = blockIdx.x + mine * gridDim.x;
+      const int bh = item / blocks, b = bh / heads, h = bh % heads;
+      const int r0 = (item % blocks) * R, k0 = chunk * CK;
+      if (chunk == 0) {
+        float* own = own_base + (mine % 2) * C::kOwnFloats;
+        const int rows = min(R, (t_q - r0 + 15) / 16 * 16);
+        const size_t at = ((static_cast<size_t>(b) * t_q + r0) * heads + h) * dh;
+        load_rows<DHP, kThreads>(own, q + at, rows, t_q - r0, row, dh, vec, tid);
+        load_rows<DHP, kThreads>(own + R * S, dout + at, rows, t_q - r0, row, dh, vec, tid);
+        const size_t vat = static_cast<size_t>(bh) * t_q + r0;
+        load_vec<kThreads>(own + 2 * R * S, lse + vat, rows, t_q - r0, tid);
+        load_vec<kThreads>(own + 2 * R * S + R, dvec + vat, rows, t_q - r0, tid);
+      }
+      float* st = stream_base + (f % 2) * C::kStreamFloats;
+      const int rows = min(CK, (t_kv - k0 + 7) / 8 * 8);
+      const size_t at = ((static_cast<size_t>(b) * t_kv + k0) * heads + h) * dh;
+      load_rows<DHP, kThreads>(st, k + at, rows, t_kv - k0, row, dh, vec, tid);
+      load_rows<DHP, kThreads>(st + CK * S, v + at, rows, t_kv - k0, row, dh, vec, tid);
     }
+    cp_async_commit();
+  };
+
+  float acc[NT][4];
+  float lse2[2], dd[2];
+  load(0);
+  for (int f = 0; f < n_steps; ++f) {
+    load(f + 1);  // the other stage was released by the barrier that ended step f - 1
+    cp_async_wait<1>();
+    __syncthreads();  // step f landed for every thread
+
+    const int mine = f / n_chunks, chunk = f % n_chunks;
+    const int item = blockIdx.x + mine * gridDim.x;
+    const int bh = item / blocks, b = bh / heads, h = bh % heads;
+    const int r0 = (item % blocks) * R, k0 = chunk * CK;
+    const int nt = (min(CK, t_kv - k0) + 7) / 8;  // n8 tiles of keys in this chunk
+    float* own = own_base + (mine % 2) * C::kOwnFloats;
+    float* ks = stream_base + (f % 2) * C::kStreamFloats;
+    const float* vs = ks + CK * S;
+    const int lo = static_cast<int>(lo_base - ks);  // from a high part to its low part
+    split_chunk<DHP, kThreads>(ks, lo_base, nt * 8, nullptr, tid);
     __syncthreads();
-
-    // Scores and dO.v^T of this lane's two keys for the warp's 8 rows.
-    float s[kRows][2], dp[kRows][2];
+    const bool active = tile * 16 < t_q - r0;
+    if (chunk == 0) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    const float* k0 = kt + lane * ks;
-    const float* k1 = kt + (lane + 32) * ks;
-    const float* v0 = vt + lane * ks;
-    const float* v1 = vt + (lane + 32) * ks;
-#pragma unroll 2
-    for (int d = 0; d < dh; ++d) {
-      const float ka = k0[d], kb = k1[d], va = v0[d], vb = v1[d];
+      for (int dn = 0; dn < NT; ++dn)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float qv = qw[r * dh + d], ov = dow[r * dh + d];
-        s[r][0] = fmaf(qv, ka, s[r][0]);
-        s[r][1] = fmaf(qv, kb, s[r][1]);
-        dp[r][0] = fmaf(ov, va, dp[r][0]);
-        dp[r][1] = fmaf(ov, vb, dp[r][1]);
+        for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = tile * 16 + g + 8 * r;  // row of the item
+        const bool valid = r0 + i < t_q;      // rows past Tq get p = 0
+        lse2[r] = valid ? own[2 * R * S + i] * kLog2e : INFINITY;
+        dd[r] = own[2 * R * S + R + i];
       }
     }
-    const bool valid0 = j0 + lane < t_kv, valid1 = j0 + lane + 32 < t_kv;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float l = lse_s[warp * kRows + r], dr = d_s[warp * kRows + r];
-      const float p0 = valid0 ? expf(s[r][0] * scale - l) : 0.f;
-      const float p1 = valid1 ? expf(s[r][1] * scale - l) : 0.f;
-      dsw[r * kStream + lane] = p0 * (dp[r][0] - dr);
-      dsw[r * kStream + lane + 32] = p1 * (dp[r][1] - dr);
-    }
-    __syncwarp();
 
-    // acc[r][c] += sum_j ds[r][j] * k[j][lane + 32c]
-    const int n = min(kStream, t_kv - j0);
-#pragma unroll 2
-    for (int j = 0; j < n; ++j) {
+    if (active) {
+      const float* qw = own + tile * 16 * S;
+      const float* dow = qw + R * S;
+      for (int j0 = 0; j0 < nt; j0 += SUB) {  // sub-tiles of SUB n-tiles, the last shorter
+        with_count<SUB>(nt - j0, [&](auto count) {
+          constexpr int N = decltype(count)::value;
+          float sc[N][4], dp[N][4];
+          score_tiles<DHP, N>(sc, dp, qw, dow, ks, vs, lo, j0, g, t4);
+          // ds = p (dP - D) in place of s, then dq += ds k over each n-tile's keys.
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dh) {
-          const float kv = kt[j * ks + d];
+          for (int i = 0; i < N; ++i) {
+            const int j = j0 + i;
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r][c] = fmaf(dsw[r * kStream + j], kv, acc[r][c]);
-        }
+            for (int e = 0; e < 4; ++e) {
+              const int r = e / 2;
+              const bool valid = k0 + 8 * j + 2 * t4 + (e & 1) < t_kv;
+              const float p = valid ? exp2f(fmaf(sc[i][e], scale2, -lse2[r])) : 0.f;
+              sc[i][e] = p * (dp[i][e] - dd[r]);
+            }
+            acc_product<DHP>(acc, sc[i], ks + 8 * j * S, lo, g, t4);
+          }
+        });
       }
     }
-    __syncwarp();  // ds is read before the next tile overwrites it
+
+    if (chunk == n_chunks - 1 && active) {
+      const int rows = min(16, t_q - r0 - tile * 16);
+      float* out = dq + ((static_cast<size_t>(b) * t_q + r0 + tile * 16) * heads + h) * dh;
+      store_tile<DHP>(acc, own + tile * 16 * S, lane, scale, out, rows, row, dh, vec);
+    }
+    __syncthreads();  // every warp is done with stage f % 2 before it is reloaded
   }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = q0 + warp * kRows + r;
-    if (t < t_q) {
-      float* o = dq + q_base + t * row;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dh) o[d] = scale * acc[r][c];
-      }
-    }
-  }
+  cp_async_wait<0>();
 }
 
-// B6: dk and dv for one tile of keys, walking every tile of queries.
-__global__ void __launch_bounds__(kThreads)
+// B6: dk and dv. Items are (sequence-head, kRows keys); queries are streamed.
+template <int DHP, int SUB>
+__global__ void __launch_bounds__(Cfg<DHP>::kThreads, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ dvec,
-                     float* __restrict__ dk, float* __restrict__ dv, int t_q, int t_kv,
-                     int heads, int dh, float scale) {
-  extern __shared__ float smem[];
-  const int qs_stride = dh + 1;            // padded q / dO row stride
-  float* ks = smem;                        // [kTile][dh]
-  float* vs = ks + kTile * dh;             // [kTile][dh]
-  float* qt = vs + kTile * dh;             // [kStream][dh + 1]
-  float* dots = qt + kStream * qs_stride;   // [kStream][dh + 1]
-  float* pb = dots + kStream * qs_stride;   // [kWarps][kRows][kStream]
-  float* dsb = pb + kWarps * kRows * kStream;  // [kWarps][kRows][kStream]
-  float* lse_s = dsb + kWarps * kRows * kStream;  // [kStream]
-  float* d_s = lse_s + kStream;            // [kStream]
-
-  const int g = blockIdx.x;  // b * heads + h
-  const int b = g / heads, h = g % heads;
-  const int j0 = blockIdx.y * kTile;
+                     float* __restrict__ dk, float* __restrict__ dv, int n_items, int blocks,
+                     int t_q, int t_kv, int heads, int dh, float scale, bool vec) {
+  using C = Cfg<DHP>;
+  constexpr int S = C::kStride, CK = C::kChunk, R = C::kRows, NT = DHP / 8;
+  constexpr int kThreads = C::kThreads;
+  const float scale2 = scale * kLog2e;
+  extern __shared__ __align__(16) float smem[];
+  float* const own_base = smem;
+  float* const stream_base = smem + 2 * C::kOwnFloats;
+  float* const lo_base = stream_base + 2 * C::kStreamFloats;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int tile = warp;  // the warp's m16 tile of own rows
+  const int n_chunks = (t_q + CK - 1) / CK;
+  const int my_items =
+      n_items > static_cast<int>(blockIdx.x) ? (n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int n_steps = my_items * n_chunks;
   const size_t row = static_cast<size_t>(heads) * dh;
-  const size_t q_base = (static_cast<size_t>(b) * t_q * heads + h) * dh;
-  const size_t kv_base = (static_cast<size_t>(b) * t_kv * heads + h) * dh;
 
-  for (int i = tid; i < kTile * dh; i += kThreads) {
-    const int r = i / dh, d = i % dh;
-    const bool ok = j0 + r < t_kv;
-    const size_t off = kv_base + (j0 + r) * row + d;
-    ks[i] = ok ? k[off] : 0.f;
-    vs[i] = ok ? v[off] : 0.f;
-  }
-
-  float acc_k[kRows][4], acc_v[kRows][4];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-  const float* kw = ks + warp * kRows * dh;
-  const float* vw = vs + warp * kRows * dh;
-  float* pw = pb + warp * kRows * kStream;
-  float* dsw = dsb + warp * kRows * kStream;
-
-  for (int i0 = 0; i0 < t_q; i0 += kStream) {
-    __syncthreads();  // the previous tile is consumed (and the key tile is staged)
-    for (int i = tid; i < kStream * dh; i += kThreads) {
-      const int r = i / dh, d = i % dh;
-      const bool ok = i0 + r < t_q;
-      const size_t off = q_base + (i0 + r) * row + d;
-      qt[r * qs_stride + d] = ok ? q[off] : 0.f;
-      dots[r * qs_stride + d] = ok ? dout[off] : 0.f;
+  auto load = [&](int f) {
+    if (f < n_steps) {
+      const int mine = f / n_chunks, chunk = f % n_chunks;
+      const int item = blockIdx.x + mine * gridDim.x;
+      const int bh = item / blocks, b = bh / heads, h = bh % heads;
+      const int r0 = (item % blocks) * R, q0 = chunk * CK;
+      if (chunk == 0) {
+        float* own = own_base + (mine % 2) * C::kOwnFloats;
+        const int rows = min(R, (t_kv - r0 + 15) / 16 * 16);
+        const size_t at = ((static_cast<size_t>(b) * t_kv + r0) * heads + h) * dh;
+        load_rows<DHP, kThreads>(own, k + at, rows, t_kv - r0, row, dh, vec, tid);
+        load_rows<DHP, kThreads>(own + R * S, v + at, rows, t_kv - r0, row, dh, vec, tid);
+      }
+      float* st = stream_base + (f % 2) * C::kStreamFloats;
+      const int rows = min(CK, (t_q - q0 + 7) / 8 * 8);
+      const size_t at = ((static_cast<size_t>(b) * t_q + q0) * heads + h) * dh;
+      load_rows<DHP, kThreads>(st, q + at, rows, t_q - q0, row, dh, vec, tid);
+      load_rows<DHP, kThreads>(st + CK * S, dout + at, rows, t_q - q0, row, dh, vec, tid);
+      const size_t vat = static_cast<size_t>(bh) * t_q + q0;
+      load_vec<kThreads>(st + 2 * CK * S, lse + vat, rows, t_q - q0, tid);
+      load_vec<kThreads>(st + 2 * CK * S + CK, dvec + vat, rows, t_q - q0, tid);
     }
-    for (int r = tid; r < kStream; r += kThreads) {
-      const bool ok = i0 + r < t_q;
-      lse_s[r] = ok ? lse[static_cast<size_t>(g) * t_q + i0 + r] : 0.f;
-      d_s[r] = ok ? dvec[static_cast<size_t>(g) * t_q + i0 + r] : 0.f;
-    }
+    cp_async_commit();
+  };
+
+  float acc_k[NT][4], acc_v[NT][4];
+  load(0);
+  for (int f = 0; f < n_steps; ++f) {
+    load(f + 1);
+    cp_async_wait<1>();
     __syncthreads();
 
-    // Scores and dO.v^T of this lane's two queries for the warp's 8 keys.
-    float s[kRows][2], dp[kRows][2];
+    const int mine = f / n_chunks, chunk = f % n_chunks;
+    const int item = blockIdx.x + mine * gridDim.x;
+    const int bh = item / blocks, b = bh / heads, h = bh % heads;
+    const int r0 = (item % blocks) * R, q0 = chunk * CK;
+    const int nt = (min(CK, t_q - q0) + 7) / 8;  // n8 tiles of queries in this chunk
+    float* own = own_base + (mine % 2) * C::kOwnFloats;
+    float* qs = stream_base + (f % 2) * C::kStreamFloats;
+    const float* dos = qs + CK * S;
+    const float* lse2 = qs + 2 * CK * S;  // base 2 once split
+    const float* dvals = lse2 + CK;  // D of the chunk's queries
+    const int lo = static_cast<int>(lo_base - qs);
+    split_chunk<DHP, kThreads>(qs, lo_base, nt * 8, qs + 2 * CK * S, tid);
+    __syncthreads();
+    const bool active = tile * 16 < t_kv - r0;
+    if (chunk == 0) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    const float* q0p = qt + lane * qs_stride;
-    const float* q1p = qt + (lane + 32) * qs_stride;
-    const float* o0p = dots + lane * qs_stride;
-    const float* o1p = dots + (lane + 32) * qs_stride;
-#pragma unroll 2
-    for (int d = 0; d < dh; ++d) {
-      const float qa = q0p[d], qb = q1p[d], oa = o0p[d], ob = o1p[d];
+      for (int dn = 0; dn < NT; ++dn)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float kv = kw[r * dh + d], vv = vw[r * dh + d];
-        s[r][0] = fmaf(kv, qa, s[r][0]);
-        s[r][1] = fmaf(kv, qb, s[r][1]);
-        dp[r][0] = fmaf(vv, oa, dp[r][0]);
-        dp[r][1] = fmaf(vv, ob, dp[r][1]);
-      }
+        for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
     }
-    const bool valid0 = i0 + lane < t_q, valid1 = i0 + lane + 32 < t_q;
-    const float l0 = lse_s[lane], l1 = lse_s[lane + 32];
-    const float d0 = d_s[lane], d1 = d_s[lane + 32];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float p0 = valid0 ? expf(s[r][0] * scale - l0) : 0.f;
-      const float p1 = valid1 ? expf(s[r][1] * scale - l1) : 0.f;
-      pw[r * kStream + lane] = p0;
-      pw[r * kStream + lane + 32] = p1;
-      dsw[r * kStream + lane] = p0 * (dp[r][0] - d0);
-      dsw[r * kStream + lane + 32] = p1 * (dp[r][1] - d1);
-    }
-    __syncwarp();
 
-    // acc_v[r][c] += sum_i p[r][i] * dO[i][col]; acc_k[r][c] += sum_i ds[r][i] * q[i][col]
-    const int n = min(kStream, t_q - i0);
-#pragma unroll 2
-    for (int i = 0; i < n; ++i) {
+    if (active) {
+      const float* kw = own + tile * 16 * S;
+      const float* vw = kw + R * S;
+      for (int j0 = 0; j0 < nt; j0 += SUB) {
+        with_count<SUB>(nt - j0, [&](auto count) {
+          constexpr int N = decltype(count)::value;
+          float sc[N][4], dp[N][4];  // s^T and dP^T: rows keys, columns queries
+          score_tiles<DHP, N>(sc, dp, kw, vw, qs, dos, lo, j0, g, t4);
+          // p^T in place of s, ds^T in place of dP; then dv += p^T dO and
+          // dk += ds^T q over each n-tile's queries.
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dh) {
-          const float ov = dots[i * qs_stride + d], qv = qt[i * qs_stride + d];
+          for (int i = 0; i < N; ++i) {
+            const int j = j0 + i;
+            const int c = 8 * j + 2 * t4;  // this lane's query columns c, c + 1
+            const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+            const float2 d2 = *reinterpret_cast<const float2*>(dvals + c);
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            acc_v[r][c] = fmaf(pw[r * kStream + i], ov, acc_v[r][c]);
-            acc_k[r][c] = fmaf(dsw[r * kStream + i], qv, acc_k[r][c]);
+            for (int e = 0; e < 4; ++e) {
+              const bool odd = e & 1;
+              const bool valid = q0 + c + odd < t_q;  // query rows past Tq get p = 0
+              const float p = valid ? exp2f(fmaf(sc[i][e], scale2, -(odd ? l2.y : l2.x))) : 0.f;
+              sc[i][e] = p;
+              dp[i][e] = p * (dp[i][e] - (odd ? d2.y : d2.x));
+            }
+            acc_product<DHP>(acc_v, sc[i], dos + 8 * j * S, lo, g, t4);
+            acc_product<DHP>(acc_k, dp[i], qs + 8 * j * S, lo, g, t4);
           }
-        }
+        });
       }
     }
-    __syncwarp();  // p and ds are read before the next tile overwrites them
-  }
 
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = j0 + warp * kRows + r;
-    if (t < t_kv) {
-      float* gk = dk + kv_base + t * row;
-      float* gv = dv + kv_base + t * row;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = lane + 32 * c;
-        if (d < dh) {
-          gk[d] = scale * acc_k[r][c];
-          gv[d] = acc_v[r][c];
-        }
-      }
+    if (chunk == n_chunks - 1 && active) {
+      const int rows = min(16, t_kv - r0 - tile * 16);
+      const size_t at = ((static_cast<size_t>(b) * t_kv + r0 + tile * 16) * heads + h) * dh;
+      store_tile<DHP>(acc_k, own + tile * 16 * S, lane, scale, dk + at, rows, row, dh, vec);
+      store_tile<DHP>(acc_v, own + R * S + tile * 16 * S, lane, 1.f, dv + at, rows, row, dh, vec);
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();
 }
 
-int dq_smem_bytes(int dh) {
-  return static_cast<int>(sizeof(float)) *
-         (2 * kTile * dh + 2 * kStream * (dh + 1) + kWarps * kRows * kStream + 2 * kTile);
+// The shared-memory opt-in of `kernel` and the persistent grid's size
+// (blocks resident on the current device).
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, int threads, int smem, int& resident) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0, device = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  resident = per_sm * sms;
+  return cudaSuccess;
 }
 
-int dkv_smem_bytes(int dh) {
-  return static_cast<int>(sizeof(float)) *
-         (2 * kTile * dh + 2 * kStream * (dh + 1) + 2 * kWarps * kRows * kStream +
-          2 * kStream);
+// Streamed n-tiles a warp holds at once: as many as fit its 255 registers
+// without spilling (the -Xptxas -v report in build.log).
+template <int DHP>
+constexpr int dq_sub() { return DHP <= 32 ? 8 : DHP <= 64 ? 4 : 2; }
+template <int DHP>
+constexpr int dkv_sub() { return DHP <= 64 ? 4 : 2; }
+
+template <int DHP>
+int launch_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+              const float* dvec, float* dq, int batch, int t_q, int t_kv, int heads, int dh,
+              float scale, bool vec, cudaStream_t stream) {
+  using C = Cfg<DHP>;
+  auto kernel = flash_bwd_dq_kernel<DHP, dq_sub<DHP>()>;
+  const int blocks = (t_q + C::kRows - 1) / C::kRows;
+  const int n_items = batch * heads * blocks;
+  static int configured_device = -1, resident = 0;  // per device, as in configure()
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device != configured_device) {
+    err = configure(kernel, C::kThreads, C::kSmemBytes, resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured_device = device;
+  }
+  const int grid = n_items < resident ? n_items : resident;
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(q, k, v, dout, lse, dvec, dq, n_items,
+                                                       blocks, t_q, t_kv, heads, dh, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DHP>
+int launch_dkv(const float* q, const float* k, const float* v, const float* dout,
+               const float* lse, const float* dvec, float* dk, float* dv, int batch, int t_q,
+               int t_kv, int heads, int dh, float scale, bool vec, cudaStream_t stream) {
+  using C = Cfg<DHP>;
+  auto kernel = flash_bwd_dkv_kernel<DHP, dkv_sub<DHP>()>;
+  const int blocks = (t_kv + C::kRows - 1) / C::kRows;
+  const int n_items = batch * heads * blocks;
+  static int configured_device = -1, resident = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device != configured_device) {
+    err = configure(kernel, C::kThreads, C::kSmemBytes, resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured_device = device;
+  }
+  const int grid = n_items < resident ? n_items : resident;
+  kernel<<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      q, k, v, dout, lse, dvec, dk, dv, n_items, blocks, t_q, t_kv, heads, dh, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte row pieces where every row starts 16-byte aligned.
+bool vec_rows(int dh, const void* const* ptrs, int n) {
+  if (dh % 4 != 0) return false;
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  return true;
 }
 
 }  // namespace
@@ -326,14 +574,15 @@ extern "C" int tip_flash_attention_bwd_dq(const float* q, const float* k, const 
                                           float scale, void* stream) {
   if (dh < 1 || dh > kMaxDh || t_kv < 1 || t_q < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = dq_smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch * heads, (t_q + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, dvec, dq, t_q, t_kv, heads, dh, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (batch * heads == 0) return 0;
+  const void* ptrs[] = {q, k, v, dout, dq};
+  const bool vec = vec_rows(dh, ptrs, 5);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 8) return launch_dq<8>(q, k, v, dout, lse, dvec, dq, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  if (dh <= 16) return launch_dq<16>(q, k, v, dout, lse, dvec, dq, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  if (dh <= 32) return launch_dq<32>(q, k, v, dout, lse, dvec, dq, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  if (dh <= 64) return launch_dq<64>(q, k, v, dout, lse, dvec, dq, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  return launch_dq<128>(q, k, v, dout, lse, dvec, dq, batch, t_q, t_kv, heads, dh, scale, vec, s);
 }
 
 extern "C" int tip_flash_attention_bwd_dkv(const float* q, const float* k, const float* v,
@@ -343,12 +592,13 @@ extern "C" int tip_flash_attention_bwd_dkv(const float* q, const float* k, const
                                            int dh, float scale, void* stream) {
   if (dh < 1 || dh > kMaxDh || t_kv < 1 || t_q < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = dkv_smem_bytes(dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch * heads, (t_kv + kTile - 1) / kTile);
-  flash_bwd_dkv_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, dout, lse, dvec, dk, dv, t_q, t_kv, heads, dh, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (batch * heads == 0) return 0;
+  const void* ptrs[] = {q, k, v, dout, dk, dv};
+  const bool vec = vec_rows(dh, ptrs, 6);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 8) return launch_dkv<8>(q, k, v, dout, lse, dvec, dk, dv, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  if (dh <= 16) return launch_dkv<16>(q, k, v, dout, lse, dvec, dk, dv, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  if (dh <= 32) return launch_dkv<32>(q, k, v, dout, lse, dvec, dk, dv, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  if (dh <= 64) return launch_dkv<64>(q, k, v, dout, lse, dvec, dk, dv, batch, t_q, t_kv, heads, dh, scale, vec, s);
+  return launch_dkv<128>(q, k, v, dout, lse, dvec, dk, dv, batch, t_q, t_kv, heads, dh, scale, vec, s);
 }

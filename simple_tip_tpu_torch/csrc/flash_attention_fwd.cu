@@ -44,6 +44,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 128;  // query rows an item: 8 m16 tiles
@@ -67,57 +69,6 @@ struct Cfg {
   static constexpr int kExchange = 4 + 4 * (DHP / 8);
   static_assert(kHalves == 1 || 256 * kExchange <= 4 * kChunk * kStride, "exchange space");
 };
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = hi + lo with hi and lo TF32 (lo is rounded to TF32 too).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  const float r = x - __uint_as_float(h);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(r));
-  hi = h;
-  lo = l;
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a.b in 3xTF32 (small products first), b's parts split beforehand
-// (hi at bh, lo at bl; rows b0 and b1 = b0 + 4 k-steps apart by `step`).
-// The tensor cores round their sums toward zero, so the k-step is summed
-// from zero and added to c by a rounded f32 add: the bias stays that of one
-// 8-term partial.
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                           const float* bh, const float* bl, int step) {
-  const uint32_t b0h = __float_as_uint(bh[0]), b1h = __float_as_uint(bh[step]);
-  const uint32_t b0l = __float_as_uint(bl[0]), b1l = __float_as_uint(bl[step]);
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(part, a_lo, b0h, b1h);
-  mma_tf32(part, a_hi, b0l, b1l);
-  mma_tf32(part, a_hi, b0h, b1h);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += part[e];
-}
 
 template <int DHP>
 __global__ void __launch_bounds__(Cfg<DHP>::kThreads, 1)

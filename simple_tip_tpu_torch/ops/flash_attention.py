@@ -15,15 +15,19 @@ Replaces the Pallas TPU kernels of ``simple_tip_tpu/ops/flash_attention.py``:
 Layout is the JAX function's: q ``[B, Tq, H, dh]``, k and v
 ``[B, Tkv, H, dh]``, out and the gradients like their inputs; the
 log-sum-exp and ``D`` are ``[B, H, Tq]``. float32 throughout; ``dh <= 128``,
-any ``Tq`` and ``Tkv >= 1``. The forward (``csrc/flash_attention_fwd.cu``)
-multiplies on the tensor cores in 3xTF32 (float32-accurate), one warp per
-16 query rows, persistent blocks walking (sequence-head, 128 queries)
-items with the next item's q, k and v loaded while this one computes; at
-the IMDB shapes (T=100, H=2, dh=32) it is bound by bytes. The backward
-(``csrc/flash_attention_bwd.cu``) keeps one block per (sequence-head, tile
-of 64 rows) on f32 FMAs and is bound by operations. All read [B,T,H,dh] in
-place and mask ragged tiles; see the sources for the designs. The TPU
-kernels' 128-lane padding of T is gone.
+any ``Tq`` and ``Tkv >= 1``. All three kernels multiply on the tensor cores
+in 3xTF32 (float32-accurate; helpers in ``csrc/tf32_mma.cuh``), one warp
+per 16 rows, in persistent blocks that load the next item while this one
+computes; at the IMDB shapes (T=100, H=2, dh=32) all three are bound by
+bytes. The forward (``csrc/flash_attention_fwd.cu``) walks (sequence-head,
+128 queries) items. The backward (``csrc/flash_attention_bwd.cu``) walks
+(sequence-head, 128 own rows) items: B5 owns queries and streams keys,
+building ds in the accumulator layout of its score tiles and feeding it to
+``ds k`` from registers; B6 owns keys, computes the scores transposed
+(``k q^T``, ``v dO^T``) and feeds ``p^T`` and ``ds^T`` to ``p^T dO`` and
+``ds^T q`` the same way. No atomics: results are the same on every run.
+All read [B,T,H,dh] in place and mask ragged tiles; see the sources for
+the designs. The TPU kernels' 128-lane padding of T is gone.
 
 ``flash_attention(q, k, v)`` is the entry point the models call: it goes
 through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
@@ -47,8 +51,8 @@ LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 NEG_INF = -1e30  # large-finite, as in the TPU kernel: -inf breaks the first rescale
-BLOCK_KV = 64  # key rows per tile, in the kernels and in the plain versions
-BLOCK_Q = 64  # query rows per tile of the backward
+BLOCK_KV = 64  # key rows per tile of the plain versions (the kernels tile their own way)
+BLOCK_Q = 64  # query rows per tile of B6's plain version
 MAX_HEAD_DIM = 128
 
 

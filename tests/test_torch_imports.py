@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``simple_tip_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax or anything of ``simple_tip_tpu``
+"""The port stands alone: no module of ``simple_tip_tpu_torch``, not
+``chip_smoke.py`` and not the port's card scripts import jax, flax or
+anything of ``simple_tip_tpu``
 (checked on the source, so lazy imports inside functions count too), and
 every module imports without a card."""
 
@@ -23,6 +24,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "scripts", "torch_flash_bwd_ab.py")
 
 
 def _imported_tops(path: str):

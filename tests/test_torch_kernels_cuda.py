@@ -221,7 +221,23 @@ BWD_SHAPES = [
     ((1, 40, 2, 8), 200),  # keys longer than queries
     ((1, 150, 1, 4), 70),  # queries longer than keys
     ((3, 65, 3, 5), 64),  # odd head dim, one ragged query tile
+    ((2, 104, 2, 32), 104),  # T at a multiple of the 8-row n-tiles
+    ((2, 112, 2, 32), 112),  # T at a multiple of the 16-row m-tiles
+    ((2, 113, 2, 32), 113),  # one past: a last m-tile and n-tile of one row
+    ((3, 100, 2, 16), 100),  # dh 16
+    ((2, 90, 2, 33), 77),  # dh 33: padded to 64, 4-byte copies
+    ((2, 130, 2, 64), 140),  # dh 64: several chunks of streamed rows
+    ((350, 100, 2, 32), 100),  # 700 sequence-heads: items wrap across persistent blocks
 ]
+
+
+def _bwd_inputs(shape, t_kv, device, seed):
+    rng = np.random.default_rng(seed)
+    b, t, h, dh = shape
+    return [
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+        for s in ((b, t, h, dh), (b, t_kv, h, dh), (b, t_kv, h, dh), (b, t, h, dh))
+    ]
 
 
 def _bwd_close(got, want, what):
@@ -233,12 +249,7 @@ def _bwd_close(got, want, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,t_kv", BWD_SHAPES)
 def test_flash_bwd_kernels_match_plain(cuda_device, shape, t_kv):
-    rng = np.random.default_rng(shape[1] + t_kv)
-    b, t, h, dh = shape
-    q, k, v, dout = (
-        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
-        for s in ((b, t, h, dh), (b, t_kv, h, dh), (b, t_kv, h, dh), (b, t, h, dh))
-    )
+    q, k, v, dout = _bwd_inputs(shape, t_kv, cuda_device, shape[1] + t_kv)
     out, lse = fa.flash_attention_fwd(q, k, v)
     dvec = fa.attention_delta(out, dout)
     before = (fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
@@ -250,6 +261,40 @@ def test_flash_bwd_kernels_match_plain(cuda_device, shape, t_kv):
     want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, dout, lse, dvec)
     _bwd_close(dk, want_dk, "dk")
     _bwd_close(dv, want_dv, "dv")
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_match_plain_where_most_p_underflow(cuda_device):
+    """90% of the keys score ~-160 below the rest (a shared dimension holds
+    30 * -30, exact in TF32), so exp underflows to 0 for them while the
+    other keys' scores stay small."""
+    q, k, v, dout = _bwd_inputs((4, 100, 2, 32), 100, cuda_device, 11)
+    far = torch.from_numpy(np.random.default_rng(12).random((4, 100, 2)) < 0.9).to(cuda_device)
+    q[..., 0] = 30.0
+    k[..., 0] = torch.where(far, -30.0, 0.0)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * fa._scale(32) - lse[..., None]
+    assert float((scores < -104).float().mean()) > 0.8  # exp(-104) is below float32's least
+    dvec = fa.attention_delta(out, dout)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, dout, lse, dvec)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, dvec)
+    _bwd_close(fa.flash_bwd_dq(q, k, v, dout, lse, dvec),
+               fa.flash_bwd_dq_plain(q, k, v, dout, lse, dvec), "dq")
+    _bwd_close(dk, want_dk, "dk")
+    _bwd_close(dv, want_dv, "dv")
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernels_are_deterministic(cuda_device):
+    """No atomics: two launches on the same inputs give bit-equal dq, dk and
+    dv, at a size where every persistent block walks several items."""
+    q, k, v, dout = _bwd_inputs((350, 100, 2, 32), 100, cuda_device, 13)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    args = (q, k, v, dout, lse, fa.attention_delta(out, dout))
+    first = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    second = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
