@@ -9,7 +9,7 @@ sizes.
 Needs one CUDA card; exits non-zero without one (and without the
 ``simple_tip_tpu_torch`` package beside it). Phases:
 
-1. build the five kernel sources with ``nvcc`` for sm_90a (one process per
+1. build the six kernel sources with ``nvcc`` for sm_90a (one process per
    source, all started together; build seconds printed);
 2. training (``casestudies.base.CaseStudy.train`` in a temp ``TIP_ASSETS``):
    each family at full width on its full training set (MNIST 60,000,
@@ -26,7 +26,7 @@ Needs one CUDA card; exits non-zero without one (and without the
    error against the plain version, and the times of the kernel, the plain
    version and one library call used as a yardstick only:
    - B1 fused MNIST forward: max |dp| <= 1e-5 over 10,000 images (library:
-     the module forward, cuDNN);
+     the module forward, cuDNN), also replayed from a CUDA graph;
    - B2 DSA nearest, on each path's own DSA (its training subsample, its
      nominal test traces, its badges: MNIST 10,000 queries x 18,000 rows x
      1,600 features, CIFAR-10 10,000 x 15,000 x 2,304, IMDB 500-query
@@ -37,7 +37,7 @@ Needs one CUDA card; exits non-zero without one (and without the
      made; the training tiles the score call's two plans visit, against two
      full walks;
    - B3 fused CIFAR-10 forward: max |dp| <= 1e-5 over 10,000 images
-     (library: the module forward, cuDNN);
+     (library: the module forward, cuDNN), also replayed from a CUDA graph;
    - B4 flash attention: out and lse within atol 1e-5 + rtol 1e-5 on the
      q/k/v of a real IMDB forward over one prediction batch and on a ragged
      shape (T=300, dh=8); timed at that batch and at a training step's
@@ -53,6 +53,10 @@ Needs one CUDA card; exits non-zero without one (and without the
      ``scaled_dot_product_attention``, dq, dk and dv together), each also
      replayed from a CUDA graph (the card alone) and by the host's own time
      per eager call;
+   - B4, B5 and B6 at wide heads, [64, 128, 2, 256] (their wide-head
+     variants): out and lse against the plain version as above, dq, dk and
+     dv with the backward's checks; timed beside the SDPA forward and
+     backward;
    - the IMDB gradients through ``FlashAttention`` at full width (one batch
      of 32, every parameter, ``train=False``) on the card against the CPU
      within rtol 2e-4 / atol 2e-5 (atol cut per leaf to 2e-4 of its largest
@@ -70,9 +74,12 @@ Needs one CUDA card; exits non-zero without one (and without the
    plain versions), compared artifact by artifact.
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
-at the rate of the unit that does its products (``UNITS``): float32 FMAs at
-67 TF/s for B1 and B3; 3xTF32 on the tensor cores (three TF32 products at
-495 TF/s) for B2, B4, B5 and B6.
+at the rate of the unit that does each of its products (``UNITS``): 3xTF32
+on the tensor cores (three TF32 products at 495 TF/s) for B2, B4, B5 and
+B6, and for B1's conv2 and B3's three convs; float32 FMAs at 67 TF/s for
+B1's conv1 and the dense layers of B1 and B3. B1 and B3 also report the
+bound with every FMA at 67 TF/s (``f32_bound_ms``), the bound of earlier
+kernels that ran on the FMAs alone.
 
 Prints the card's name and power limit, per-run training records, per-path
 seconds, one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
@@ -320,7 +327,14 @@ def graph_ms(fn, reps: int, stream=None) -> float:
 def bound_ms(flops: float, nbytes: float, unit: str = "f32"):
     """(least milliseconds at the published peaks, what bounds them), the
     operations counted at the rate of ``unit`` (a key of ``UNITS``)."""
-    t_ops, t_bytes = flops / UNITS[unit][0] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return mixed_bound_ms([(flops, unit)], nbytes)
+
+
+def mixed_bound_ms(work, nbytes: float):
+    """``bound_ms`` for work done by several units: ``work`` is (FLOPs, key
+    of ``UNITS``) pairs, each at its unit's rate, one after another."""
+    t_ops = sum(flops / UNITS[unit][0] for flops, unit in work) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -330,78 +344,72 @@ def _module(family: str, params, dev):
     return net
 
 
-def check_fused_forward(params, x_test: np.ndarray, dev) -> dict:
-    """B1 against its plain version on the nominal test set."""
-    fused = {k: v.to(dev) for k, v in params["fused"].items()}
-    net = _module("mnist", params, dev)
-    x = torch.from_numpy(x_test).to(dev)
-    got = fused_forward.fused_mnist_probs(fused, x)
-    want = fused_forward.fused_mnist_probs_plain(fused, x)
+def _fused_record(name: str, kernel, plain, net, fused, x, work, replaces: str) -> dict:
+    """A fused forward against its plain version on ``x``, max |dp| <= 1e-5,
+    and its times: eager, replayed from a CUDA graph, the plain version's and
+    the module forward's (cuDNN). ``work`` is its (FLOPs, unit) pairs; the
+    bound takes each at its unit's rate, ``f32_bound_ms`` all at 67 TF/s."""
+    got = kernel(fused, x)
+    want = plain(fused, x)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not err <= 1e-5:
-        raise AssertionError(f"fused forward disagrees with its plain version: {err}")
+        raise AssertionError(f"{name} disagrees with its plain version: {err}")
     with torch.no_grad():
-        ms = cuda_ms(lambda: fused_forward.fused_mnist_probs(fused, x), 20)
-        plain_ms = cuda_ms(lambda: fused_forward.fused_mnist_probs_plain(fused, x), 5)
+        ms = cuda_ms(lambda: kernel(fused, x), 20)
+        device = graph_ms(lambda: kernel(fused, x), 20)
+        plain_ms = cuda_ms(lambda: plain(fused, x), 3)
         library_ms = cuda_ms(lambda: net(x), 20)
     b = x.shape[0]
-    flops = b * 2 * (26 * 26 * 32 * 9 + 10 * 10 * 64 * 288 + 1600 * 10)
-    nbytes = b * (784 + 10) * 4 + sum(t.numel() * 4 for t in fused.values())
-    bound, by = bound_ms(flops, nbytes)
+    # images read and probabilities written once; the plain version's weights once
+    nbytes = b * (x[0].numel() + 10) * 4 + sum(
+        t.numel() * 4 for k, t in fused.items() if not k.endswith("_tc"))
+    bound, by = mixed_bound_ms(work, nbytes)
+    f32_bound, f32_by = bound_ms(sum(flops for flops, _ in work), nbytes)
     return {
-        "name": "fused_mnist_forward",
+        "name": name,
         "route": "cuda",
-        "source": "simple_tip_tpu_torch/csrc/fused_mnist_forward.cu",
-        "replaces": "simple_tip_tpu/ops/fused_forward.py:60",
+        "source": f"simple_tip_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
         "timed": f"one launch over the {b} nominal test images",
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
-        "bound_unit": UNITS["f32"][1],
+        "bound_unit": "convolutions in 3xTF32 on the tensor cores (3 TF32 products at 495 "
+                      "TF/s); conv1 (B1) and the dense layers on float32 FMAs, 67 TF/s",
+        "f32_bound_ms": f32_bound,
+        "f32_bound_by": f32_by,
         "library_ms": library_ms,
+        "device_ms": device,
     }
+
+
+def check_fused_forward(params, x_test: np.ndarray, dev) -> dict:
+    """B1 against its plain version on the nominal test set."""
+    fused = {k: v.to(dev) for k, v in params["fused"].items()}
+    x = torch.from_numpy(x_test).to(dev)
+    b = x.shape[0]
+    # conv1 at all 26x26 positions, conv2 at the 10x10 the floor pool keeps
+    work = [(b * 2 * 26 * 26 * 32 * 9, "f32"), (b * 2 * 10 * 10 * 64 * 288, "3xtf32"),
+            (b * 2 * 1600 * 10, "f32")]
+    return _fused_record("fused_mnist_forward", fused_forward.fused_mnist_probs,
+                         fused_forward.fused_mnist_probs_plain, _module("mnist", params, dev),
+                         fused, x, work, "simple_tip_tpu/ops/fused_forward.py:60")
 
 
 def check_cifar10_forward(params, x_test: np.ndarray, dev) -> dict:
     """B3 against its plain version on the nominal test set."""
     fused = {k: v.to(dev) for k, v in params["fused"].items()}
-    net = _module("cifar10", params, dev)
     x = torch.from_numpy(x_test).to(dev)
-    got = fused_forward.fused_cifar10_probs(fused, x)
-    want = fused_forward.fused_cifar10_probs_plain(fused, x)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not err <= 1e-5:
-        raise AssertionError(f"CIFAR-10 fused forward disagrees with its plain version: {err}")
-    with torch.no_grad():
-        ms = cuda_ms(lambda: fused_forward.fused_cifar10_probs(fused, x), 10)
-        plain_ms = cuda_ms(lambda: fused_forward.fused_cifar10_probs_plain(fused, x), 3)
-        library_ms = cuda_ms(lambda: net(x), 10)
     b = x.shape[0]
-    # FMAs at the positions the pools keep: conv1 30x30, conv2 12x12,
-    # conv3 4x4, two dense layers.
-    flops = b * 2 * (
-        30 * 30 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576 + 1024 * 64 + 64 * 10
-    )
-    nbytes = b * (3072 + 10) * 4 + sum(t.numel() * 4 for t in fused.values())
-    bound, by = bound_ms(flops, nbytes)
-    return {
-        "name": "fused_cifar10_forward",
-        "route": "cuda",
-        "source": "simple_tip_tpu_torch/csrc/fused_cifar10_forward.cu",
-        "replaces": "simple_tip_tpu/ops/fused_forward.py:153",
-        "timed": f"one launch over the {b} nominal test images",
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "bound_unit": UNITS["f32"][1],
-        "library_ms": library_ms,
-    }
+    # the convs at the positions the pools keep: conv1 30x30, conv2 12x12, conv3 4x4
+    convs = 30 * 30 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576
+    work = [(b * 2 * convs, "3xtf32"), (b * 2 * (1024 * 64 + 64 * 10), "f32")]
+    return _fused_record("fused_cifar10_forward", fused_forward.fused_cifar10_probs,
+                         fused_forward.fused_cifar10_probs_plain, _module("cifar10", params, dev),
+                         fused, x, work, "simple_tip_tpu/ops/fused_forward.py:153")
 
 
 def _cdist_nearest(x, labels, train, train_labels, want_same):
@@ -772,6 +780,62 @@ def check_flash_backward(params, data, dev, seed: int) -> list:
     return entries
 
 
+WIDE_SHAPE = (64, 128, 2, 256)  # [B, T, H, dh]: past the narrow kernels' dh <= 128
+
+
+def check_wide_heads(dev, seed: int) -> dict:
+    """B4, B5 and B6 at head_dim 256, where they take their wide-head
+    variants, against their plain versions on seeded q, k, v and dO: out and
+    lse with the forward's check, dq, dk and dv with the backward's. Timed
+    (eager, replayed from a CUDA graph, plain) beside the SDPA forward and
+    backward on the same inputs."""
+    rng = np.random.default_rng(seed + 1)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=WIDE_SHAPE).astype(np.float32)).to(dev)
+                     for _ in range(4))
+    fa = flash_attention
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v)
+    args = (q, k, v, dout, lse, fa.attention_delta(out, dout))
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    err = {"out": _attention_close(out, want_out, "wide-head out"),
+           "lse": _attention_close(lse, want_lse, "wide-head lse"),
+           "dq": _bwd_close(dq, fa.flash_bwd_dq_plain(*args), "wide-head dq")[0],
+           "dk": _bwd_close(dk, want_dk, "wide-head dk")[0],
+           "dv": _bwd_close(dv, want_dv, "wide-head dv")[0]}
+    b, t, h, dh = WIDE_SHAPE
+    pairs = b * h * t * t * dh  # one product is 2 * pairs FLOPs
+    io = 4 * b * t * h * dh  # bytes of one [B, T, H, dh] array
+    rows = 4 * 2 * b * h * t  # lse and D
+    qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+
+    def forward():
+        return fa.flash_attention_fwd(q, k, v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh)
+
+    with torch.no_grad():
+        fwd = {"ms": cuda_ms(forward, 20), "device_ms": graph_ms(forward, 20),
+               "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3),
+               "library_ms": cuda_ms(sdpa, 20),
+               "bound": bound_ms(2 * 2 * pairs, 4 * io + 4 * b * h * t, "3xtf32")}
+    library = sdpa_backward_times(q, k, v, dout, 20)
+    record = {
+        "shape": list(WIDE_SHAPE),
+        "max_abs_err": err,
+        "fwd": fwd,
+        "dq": {**_bwd_times(fa.flash_bwd_dq, fa.flash_bwd_dq_plain, args, 20),
+               "bound": bound_ms(3 * 2 * pairs, 5 * io + rows, "3xtf32"), **library},
+        "dkv": {**_bwd_times(fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, args, 20),
+                "bound": bound_ms(4 * 2 * pairs, 6 * io + rows, "3xtf32"), **library},
+    }
+    print(json.dumps({"wide_heads": record}))
+    return record
+
+
 def check_imdb_gradients(params, data, dev) -> dict:
     """Every parameter gradient of one full-width IMDB batch of 32 (loss
     with ``train=False``) through ``FlashAttention``, on the card and on
@@ -1004,6 +1068,12 @@ def main() -> int:
             check_flash_attention(params["imdb"], data["imdb"][1][0], dev, args.seed),
             *check_flash_backward(params["imdb"], data["imdb"], dev, args.seed),
         ]
+        wide = check_wide_heads(dev, args.seed)
+        for k in kernels:
+            part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
+                    "flash_attention_bwd_dkv": "dkv"}.get(k["name"])
+            if part:
+                k["at_wide_heads"] = {"shape": wide["shape"], **wide[part]}
         gradients = check_imdb_gradients(params["imdb"], data["imdb"], dev)
         dsa_by_path = {family: check_dsa_nearest(family, params[family], data[family][0][0],
                                                  data[family][1][0], dev)
@@ -1035,8 +1105,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"gpu": smi, "build_s": build_s, "kernels": kernels, "training": training,
-                       "imdb_gradients": gradients, "classes": classes, "paths": paths},
-                      f, indent=1)
+                       "imdb_gradients": gradients, "wide_heads": wide, "classes": classes,
+                       "paths": paths}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

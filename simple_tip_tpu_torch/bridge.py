@@ -19,6 +19,10 @@ tells the family by its top-level names and returns two layouts of it:
   - CIFAR-10 (``Conv_0..2``, ``Dense_0..1``): ``w1 [27, 32]``,
     ``w2 [288, 64]``, ``w3 [576, 64]``, ``wd1 [1024, 64]``, ``wd2 [64, 10]``
     and biases;
+  - besides, each conv that the card multiplies on its tensor cores as
+    ``w*_tc``, its im2col matrix as TF32 fragments
+    (``ops.fused_forward.tf32_fragments``): MNIST ``w2_tc``, CIFAR-10
+    ``w1_tc``, ``w2_tc`` and ``w3_tc``. The plain versions do not read them;
   - IMDB: none (the JAX package has no fused IMDB kernel; its attention
     core is kernel B4 inside the module).
 
@@ -38,6 +42,7 @@ import torch
 from torch import nn
 
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
+from simple_tip_tpu_torch.ops.fused_forward import tf32_fragments
 
 FAMILIES = ("mnist", "cifar10", "imdb")
 _ATTENTION_NAMES = ("MultiHeadDotProductAttention_0", "SequenceParallelSelfAttention_0")
@@ -95,6 +100,7 @@ def _mnist(params):
         "wd": _f32(wd),
         "bd": _f32(bd),
     }
+    fused["w2_tc"] = tf32_fragments(fused["w2"])
     return module, fused
 
 
@@ -121,6 +127,8 @@ def _cifar10(params):
         module[f"dense{i}.bias"] = _f32(b)
         fused[f"wd{i}"] = _f32(w)
         fused[f"bd{i}"] = _f32(b)
+    for i in range(1, 4):
+        fused[f"w{i}_tc"] = tf32_fragments(fused[f"w{i}"])
     return module, fused
 
 

@@ -11,7 +11,9 @@
 //   B5: dq_i = scale * sum_j ds[i][j] k_j
 //   B6: dv_j = sum_i p[i][j] dO_i,  dk_j = scale * sum_i ds[i][j] q_i.
 // q and dO [B,Tq,H,dh], k and v [B,Tkv,H,dh], lse and D [B,H,Tq]; dq
-// [B,Tq,H,dh], dk and dv [B,Tkv,H,dh]. dh <= 128, any Tq >= 1, Tkv >= 1.
+// [B,Tq,H,dh], dk and dv [B,Tkv,H,dh]. Any dh >= 1, Tq >= 1, Tkv >= 1: this
+// file's kernels take dh <= 128; wider heads go to the wide-head variants in
+// flash_attention_wide.cu.
 //
 // What bounds them on this card: per sequence-head B5 does three products
 // of 2*Tq*Tkv*dh FLOPs (q.k^T, dO.v^T, ds.k) and B6 four (k.q^T, v.dO^T,
@@ -70,7 +72,7 @@
 
 namespace {
 
-constexpr int kMaxDh = 128;
+constexpr int kNarrowDh = 128;  // the widest head dim these kernels hold in registers
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DHP>
@@ -136,19 +138,6 @@ __device__ __forceinline__ void split_chunk(float* st, float* lo, int rows, floa
   }
   if (lse2 != nullptr)
     for (int r = tid; r < rows; r += kThreads) lse2[r] *= kLog2e;
-}
-
-// The A fragment (hi, lo) of rows g and g + 8, k-step kk, of a 16-row tile
-// at w (kStride floats a row).
-template <int DHP>
-__device__ __forceinline__ void a_frag(const float* w, int kk, int g, int t4, uint32_t* hi,
-                                       uint32_t* lo) {
-  constexpr int S = DHP + 4;
-  const float* ap = w + g * S + 8 * kk + t4;
-  split_tf32(ap[0], hi[0], lo[0]);
-  split_tf32(ap[8 * S], hi[1], lo[1]);
-  split_tf32(ap[4], hi[2], lo[2]);
-  split_tf32(ap[8 * S + 4], hi[3], lo[3]);
 }
 
 // f(std::integral_constant<int, n>) for the runtime n in [1, N]: a sub-tile
@@ -557,24 +546,27 @@ int launch_dkv(const float* q, const float* k, const float* v, const float* dout
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte row pieces where every row starts 16-byte aligned.
-bool vec_rows(int dh, const void* const* ptrs, int n) {
-  if (dh % 4 != 0) return false;
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-  return true;
-}
-
 }  // namespace
+
+extern "C" int tip_flash_wide_bwd_dq(const float* q, const float* k, const float* v,
+                                     const float* dout, const float* lse, const float* dvec,
+                                     float* dq, int batch, int t_q, int t_kv, int heads, int dh,
+                                     float scale, void* stream);
+extern "C" int tip_flash_wide_bwd_dkv(const float* q, const float* k, const float* v,
+                                      const float* dout, const float* lse, const float* dvec,
+                                      float* dk, float* dv, int batch, int t_q, int t_kv,
+                                      int heads, int dh, float scale, void* stream);
 
 extern "C" int tip_flash_attention_bwd_dq(const float* q, const float* k, const float* v,
                                           const float* dout, const float* lse,
                                           const float* dvec, float* dq, int batch,
                                           int t_q, int t_kv, int heads, int dh,
                                           float scale, void* stream) {
-  if (dh < 1 || dh > kMaxDh || t_kv < 1 || t_q < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dh < 1 || t_kv < 1 || t_q < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch * heads == 0) return 0;
+  if (dh > kNarrowDh)
+    return tip_flash_wide_bwd_dq(q, k, v, dout, lse, dvec, dq, batch, t_q, t_kv, heads, dh,
+                                 scale, stream);
   const void* ptrs[] = {q, k, v, dout, dq};
   const bool vec = vec_rows(dh, ptrs, 5);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -590,9 +582,11 @@ extern "C" int tip_flash_attention_bwd_dkv(const float* q, const float* k, const
                                            const float* dvec, float* dk, float* dv,
                                            int batch, int t_q, int t_kv, int heads,
                                            int dh, float scale, void* stream) {
-  if (dh < 1 || dh > kMaxDh || t_kv < 1 || t_q < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dh < 1 || t_kv < 1 || t_q < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch * heads == 0) return 0;
+  if (dh > kNarrowDh)
+    return tip_flash_wide_bwd_dkv(q, k, v, dout, lse, dvec, dk, dv, batch, t_q, t_kv, heads,
+                                  dh, scale, stream);
   const void* ptrs[] = {q, k, v, dout, dk, dv};
   const bool vec = vec_rows(dh, ptrs, 6);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -5,7 +5,9 @@
 // `_flash_kernel` (launched by `_flash_fwd_call`): exact attention
 // softmax(q k^T * scale) v with a streaming softmax over key tiles, writing
 // the output and the log-sum-exp of every query row. q [B,Tq,H,dh], k and v
-// [B,Tkv,H,dh], out [B,Tq,H,dh], lse [B,H,Tq]; dh <= 128, any Tq, Tkv >= 1.
+// [B,Tkv,H,dh], out [B,Tq,H,dh], lse [B,H,Tq]; any dh >= 1, Tq, Tkv >= 1.
+// This file's kernel takes dh <= 128; wider heads go to the wide-head
+// variant in flash_attention_wide.cu.
 //
 // What bounds it on this card: at the IMDB shapes (T=100, H=2, dh=32) a
 // sequence-head needs 2 products x 2*100*100*32 = 1.28 MFLOP against 51 KB
@@ -49,7 +51,7 @@
 namespace {
 
 constexpr int kBlockQ = 128;  // query rows an item: 8 m16 tiles
-constexpr int kMaxDh = 128;
+constexpr int kNarrowDh = 128;  // the widest head dim this kernel holds in registers
 constexpr float kNegInf = -1e30f;
 
 template <int DHP>
@@ -368,12 +370,18 @@ int launch(const float* q, const float* k, const float* v, float* out, float* ls
 
 }  // namespace
 
+extern "C" int tip_flash_wide_fwd(const float* q, const float* k, const float* v, float* out,
+                                  float* lse, int batch, int t_q, int t_kv, int heads, int dh,
+                                  float scale, void* stream);
+
 extern "C" int tip_flash_attention_fwd(const float* q, const float* k, const float* v,
                                        float* out, float* lse, int batch, int t_q,
                                        int t_kv, int heads, int dh, float scale,
                                        void* stream) {
-  if (dh < 1 || dh > kMaxDh || t_kv < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh < 1 || t_kv < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch * heads * t_q == 0) return 0;
+  if (dh > kNarrowDh)
+    return tip_flash_wide_fwd(q, k, v, out, lse, batch, t_q, t_kv, heads, dh, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh <= 8) return launch<8>(q, k, v, out, lse, batch, t_q, t_kv, heads, dh, scale, s);
   if (dh <= 16) return launch<16>(q, k, v, out, lse, batch, t_q, t_kv, heads, dh, scale, s);

@@ -14,8 +14,8 @@ Replaces the Pallas TPU kernels of ``simple_tip_tpu/ops/flash_attention.py``:
 
 Layout is the JAX function's: q ``[B, Tq, H, dh]``, k and v
 ``[B, Tkv, H, dh]``, out and the gradients like their inputs; the
-log-sum-exp and ``D`` are ``[B, H, Tq]``. float32 throughout; ``dh <= 128``,
-any ``Tq`` and ``Tkv >= 1``. All three kernels multiply on the tensor cores
+log-sum-exp and ``D`` are ``[B, H, Tq]``. float32 throughout; any ``dh``,
+``Tq`` and ``Tkv >= 1``. All three kernels multiply on the tensor cores
 in 3xTF32 (float32-accurate; helpers in ``csrc/tf32_mma.cuh``), one warp
 per 16 rows, in persistent blocks that load the next item while this one
 computes; at the IMDB shapes (T=100, H=2, dh=32) all three are bound by
@@ -27,7 +27,11 @@ building ds in the accumulator layout of its score tiles and feeding it to
 (``k q^T``, ``v dO^T``) and feeds ``p^T`` and ``ds^T`` to ``p^T dO`` and
 ``ds^T q`` the same way. No atomics: results are the same on every run.
 All read [B,T,H,dh] in place and mask ragged tiles; see the sources for
-the designs. The TPU kernels' 128-lane padding of T is gone.
+the designs. The TPU kernels' 128-lane padding of T is gone. Above
+head_dim 128 a row's head dim no longer fits a warp's registers, and
+each kernel takes its wide-head variant (``csrc/flash_attention_wide.cu``):
+blocks own 64 rows and one 128-wide slice of the output columns, contracting
+the scores over the whole head dim in chunks from shared memory.
 
 ``flash_attention(q, k, v)`` is the entry point the models call: it goes
 through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
@@ -53,7 +57,6 @@ BWD_DKV_LAUNCHES = 0
 NEG_INF = -1e30  # large-finite, as in the TPU kernel: -inf breaks the first rescale
 BLOCK_KV = 64  # key rows per tile of the plain versions (the kernels tile their own way)
 BLOCK_Q = 64  # query rows per tile of B6's plain version
-MAX_HEAD_DIM = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,8 +136,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             and v.is_contiguous()):
         raise ValueError("flash attention takes contiguous float32 tensors on one card")
     b, t_q, h, dh = q.shape
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"flash attention takes head_dim <= {MAX_HEAD_DIM}, got {dh}")
     out = torch.empty_like(q)
     lse = q.new_empty((b, h, t_q))
     if b * h * t_q == 0:
@@ -261,7 +262,7 @@ def flash_attention_bwd_plain(
 
 def _check_bwd(q, k, v, dout, lse, dvec) -> None:
     _check_shapes(q, k, v)
-    b, t_q, h, dh = q.shape
+    b, t_q, h, _ = q.shape
     if dout.shape != q.shape:
         raise ValueError(f"dO {tuple(dout.shape)} is not shaped like q {tuple(q.shape)}")
     if lse.shape != (b, h, t_q) or dvec.shape != (b, h, t_q):
@@ -269,8 +270,6 @@ def _check_bwd(q, k, v, dout, lse, dvec) -> None:
     for t in (q, k, v, dout, lse, dvec):
         if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("flash attention backward takes contiguous float32 tensors on one card")
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"flash attention takes head_dim <= {MAX_HEAD_DIM}, got {dh}")
 
 
 def _launch_dq(q, k, v, dout, lse, dvec):

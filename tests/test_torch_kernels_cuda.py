@@ -27,7 +27,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 300, 1000])
+@pytest.mark.parametrize("batch", [1, 3, 7, 300, 1000, 1002])  # tiles of 5 images
 def test_fused_forward_kernel_matches_plain(cuda_device, batch):
     fused = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(3))["fused"].items()}
     x = np.random.default_rng(batch).uniform(0, 1, size=(batch, 28, 28, 1)).astype(np.float32)
@@ -170,7 +170,7 @@ def test_dsa_nearest_kernel_refuses_a_plan_of_another_tile(cuda_device, monkeypa
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 5, 300, 1001])
+@pytest.mark.parametrize("batch", [1, 2, 5, 300, 1001, 1003])  # tiles of 4 images
 def test_cifar10_forward_kernel_matches_plain(cuda_device, batch):
     params = params_from_jax(glorot_params(4, "cifar10"))["fused"]
     fused = {k: v.to(cuda_device) for k, v in params.items()}
@@ -297,6 +297,49 @@ def test_flash_bwd_kernels_are_deterministic(cuda_device):
         assert torch.equal(a, b)
 
 
+WIDE_SHAPES = [
+    ((2, 70, 2, 129), 77),  # one column past the narrow kernels: 4-byte copies, 2 slices
+    ((1, 100, 2, 160), 100),  # 16-byte copies, a 32-column second slice
+    ((2, 130, 1, 256), 90),  # two full slices, ragged 64-row blocks each way
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,t_kv", WIDE_SHAPES)
+def test_flash_kernels_match_plain_at_wide_heads(cuda_device, shape, t_kv):
+    """B4, B5 and B6 above head_dim 128 (their wide-head variants) against
+    the plain versions, at the checks of the narrow shapes."""
+    q, k, v, dout = _bwd_inputs(shape, t_kv, cuda_device, shape[3])
+    before = (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    dvec = fa.attention_delta(out, dout)
+    dq = fa.flash_bwd_dq(q, k, v, dout, lse, dvec)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, dvec)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES) == tuple(n + 1 for n in before)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    _bwd_close(dq, fa.flash_bwd_dq_plain(q, k, v, dout, lse, dvec), "dq")
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, dout, lse, dvec)
+    _bwd_close(dk, want_dk, "dk")
+    _bwd_close(dv, want_dv, "dv")
+
+
+@pytest.mark.cuda
+def test_flash_kernels_are_deterministic_at_wide_heads(cuda_device):
+    """The wide-head variants use no atomics either: two launches give
+    bit-equal out, lse, dq, dk and dv."""
+    q, k, v, dout = _bwd_inputs((3, 150, 2, 256), 150, cuda_device, 14)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        args = (q, k, v, dout, lse, fa.attention_delta(out, dout))
+        runs.append((out, lse, fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_flash_attention_gradients_on_the_card_match_the_cpu(cuda_device):
     rng = np.random.default_rng(7)
@@ -326,6 +369,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     misaligned = torch.zeros(2 * 3072 + 1, device=cuda_device)[1:].view(2, 32, 32, 3)
     with pytest.raises(ValueError):
         fused_forward.fused_cifar10_probs(cifar, misaligned)
-    wide = torch.zeros(1, 4, 1, 129, device=cuda_device)
+    without_fragments = {k: v for k, v in cifar.items() if not k.endswith("_tc")}
     with pytest.raises(ValueError):
-        fa.flash_attention(wide, wide, wide)
+        fused_forward.fused_cifar10_probs(without_fragments, torch.zeros(2, 32, 32, 3, device=cuda_device))
