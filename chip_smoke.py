@@ -64,14 +64,31 @@ Needs one CUDA card; exits non-zero without one (and without the
      gradients;
 4. per path (MNIST 60,000 / 10,000 / 10,000; CIFAR-10 50,000 / 10,000 /
    10,000; IMDB 25,000 / 25,000 / 25,000 with ``dsa_badge_size=500``), the
-   slice (``engine.eval_prioritization.evaluate``) on run 0's trained
-   checkpoint (``CaseStudy.load_params`` through the bridge) with every
-   launch counter set to 0 just before and read just after: each kernel of
-   the path must have launched; every artifact is checked for the JAX
-   package's name, dtype and shape, every CAM order for being a
-   permutation; APFD of deep_gini, dsa and NAC_0.75 is printed;
-5. per path, the slice on a small subset on the card and on the CPU (the
-   plain versions), compared artifact by artifact.
+   slice (``engine.eval_prioritization.evaluate``, all 39 approaches with
+   the five SA variants) on run 0's trained checkpoint
+   (``CaseStudy.load_params`` through the bridge) with every launch counter
+   set to 0 just before and read just after: each kernel of the path must
+   have launched; every artifact is checked for the JAX package's name,
+   dtype and shape, every CAM order for being a permutation, SA scores for
+   NaN (and +inf outside dsa and pc-lsa); APFD of deep_gini, dsa and
+   NAC_0.75 is printed, then per SA variant its setup and score seconds on
+   both datasets and its +inf count, pc-mmdsa's chosen k, and the family's
+   row of the APFD table (``plotters/eval_apfd_table``: all 39 approaches,
+   nominal and OOD, with their reported times);
+5. per path, the slice with DSA on a small subset on the card and on the
+   CPU (the plain versions), compared artifact by artifact; then the four
+   other SA variants fitted and scored on the card and on the CPU from the
+   same traces (``SA_CHECK``: MNIST 20,000 training rows, CIFAR-10 25,000,
+   IMDB 2,000; 500 test rows; pc-mlsa on MNIST and CIFAR-10 on 500
+   training rows of one class at their 64 features of highest variance,
+   since its EM at 1,600 or 2,304 features takes minutes on the CPU and is
+   ill-conditioned on so few rows): the same chosen k and ``reg_covar``
+   rungs, the same +inf rows, finite scores (and pc-lsa's log densities
+   before the exp) within rtol 1e-3, SC-CAM orders equal in all but 5% of
+   their positions; on MNIST and CIFAR-10 pc-mlsa is also read at full
+   width on one class's rows (``mlsa_full_width``: finite scores and the
+   APFD of both sides' SC-CAM orders within 0.02 gated; each side's
+   ``reg_covar`` rung, the score gap and SC-CAM moves printed).
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does each of its products (``UNITS``): 3xTF32
@@ -112,7 +129,8 @@ from simple_tip_tpu_torch.data import synthetic
 from simple_tip_tpu_torch.device import resolve
 from simple_tip_tpu_torch.engine import eval_prioritization
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
-from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS
+from simple_tip_tpu_torch.engine.sa_prep import SharedTrainPrep, VariantFitter
+from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS, _sc_cam_order
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 from simple_tip_tpu_torch.models.predict import PREDICT_BATCH, predict, to_device
 from simple_tip_tpu_torch.models.train import (
@@ -123,6 +141,7 @@ from simple_tip_tpu_torch.models.train import (
 )
 from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
+from simple_tip_tpu_torch.plotters import eval_apfd_table, times_collector
 from simple_tip_tpu_torch.utils import checkpoint
 
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
@@ -139,6 +158,31 @@ NC_METRICS = (
     "NBC_0", "NBC_0.5", "NBC_1", "SNAC_0", "SNAC_0.5", "SNAC_1",
     "NAC_0", "NAC_0.75", "TKNC_1", "TKNC_2", "TKNC_3", "KMNC_2",
 )
+SA_NAMES = tuple(SA_VARIANTS)
+NEW_SA = ("pc-lsa", "pc-mdsa", "pc-mlsa", "pc-mmdsa")
+# The card-against-CPU check of the four SA variants, on the same traces:
+# training rows (more per class than the tap has features, so that MDSA's
+# covariances are not singular), test rows, and for pc-mlsa on the convnets
+# the rows and features of its one-class check. Its EM at 1,600 or 2,304
+# features takes minutes a class on the CPU, and on 500 rows its covariances
+# are singular but for the ridge (condition ~1e7), where float32 EM on an
+# H100 and on its host's CPU differed by 2.1e-3 to 7.4e-2 over three runs
+# on MNIST: so it is gated on one class's 500 training rows at their 64
+# features of highest variance, and read at full width apart (below).
+# Scores must agree within SA_RTOL (finite rows, equal +inf rows; pc-lsa
+# also its log densities before the exp, whose +inf scores leave few
+# finite rows), the chosen k and MLSA rungs exactly, and the SC-CAM orders
+# in all but SA_ORDER_CAP of their positions.
+SA_CHECK = {"mnist": (20_000, 500, (500, 64)), "cifar10": (25_000, 500, (500, 64)),
+            "imdb": (2_000, 500, None)}
+SA_RTOL = 1e-3
+SA_ORDER_CAP = 0.05
+# pc-mlsa at full width (``mlsa_full_width``): its EM's float32 Cholesky of
+# near-singular covariances fails on one device and not the other near the
+# ridge, so even the reg_covar rung can differ (CIFAR-10, 1e-4 on an H100
+# against 1e-6 on its host's CPU, scores 5.5x apart); what is gated is the
+# APFD of each side's SC-CAM order, within MLSA_APFD_GAP.
+MLSA_APFD_GAP = 0.02
 # Per path: model, (train, nominal, ood) sizes, NC and SA taps, DSA badge,
 # batch size (the JAX case study's prediction badge), coverage neurons of
 # the NC taps, the kernels the test_prio path must launch; for training the
@@ -433,7 +477,8 @@ def check_dsa_nearest(family: str, params, x_train, x_test, dev) -> dict:
                       batch_size=1024, device=dev)
     train_outs = model.get_activations(x_train)
     test_outs = model.get_activations(x_test)
-    dsa = SA_VARIANTS["dsa"](train_outs[:-1], train_outs[-1].argmax(1), cfg["dsa_badge"])
+    prep = SharedTrainPrep(train_outs[:-1], train_outs[-1].argmax(1).cpu().numpy(), dev)
+    dsa = SA_VARIANTS["dsa"](VariantFitter(prep, dev, cfg["dsa_badge"]))
     x = dsa.traces(test_outs[:-1])
     labels = test_outs[-1].argmax(1).to(torch.int32)
     chunk = dsa.badge_size or x.shape[0]
@@ -878,7 +923,7 @@ def check_imdb_gradients(params, data, dev) -> dict:
     return record
 
 
-def expected_artifacts(family: str, n: int):
+def expected_artifacts(family: str, n: int, sa_names=SA_NAMES):
     """{file suffix: (dtype, shape)} the JAX package writes per dataset."""
     neurons = PATHS[family]["neurons"]
 
@@ -894,34 +939,41 @@ def expected_artifacts(family: str, n: int):
         bits = neurons * (2 if m[:3] in ("NBC", "KMN") else 1)
         out[f"{m}_scores"] = (score_dtype(bits), (n,))
         out[f"{m}_cam_order"] = (np.dtype(np.int64), (n,))
-    out["dsa_scores"] = (np.dtype(np.float64), (n,))
-    out["dsa_cam_order"] = (np.dtype(np.int64), (n,))
+    for name in sa_names:
+        out[f"{name}_scores"] = (np.dtype(np.float64), (n,))
+        out[f"{name}_cam_order"] = (np.dtype(np.int64), (n,))
     return out
 
 
-def read_artifacts(family: str, n: int):
-    """Load and check every artifact and time record of model 0.
+def read_artifacts(family: str, n: int, sa_names=SA_NAMES):
+    """Load and check every artifact and time record of model 0: SA scores
+    hold no NaN, and only dsa's and pc-lsa's may hold +inf (no other-class
+    row; a KDE density that underflows).
 
     Returns ``({(ds, suffix): array}, {ds: {metric: [setup, pred, quant, cam]}})``.
     """
     found, records = {}, {}
-    metrics = [*UNCERTAINTIES, *NC_METRICS, "dsa"]
+    expected = expected_artifacts(family, n, sa_names)
+    metrics = [*UNCERTAINTIES, *NC_METRICS, *sa_names]
     if PATHS[family]["model"].has_dropout:
         metrics.append("VR")
     for ds in ("nominal", "ood"):
-        for suffix, (dtype, shape) in expected_artifacts(family, n).items():
+        for suffix, (dtype, shape) in expected.items():
             path = os.path.join(subdir("priorities"), f"{family}_{ds}_0_{suffix}.npy")
             a = np.load(path)
             if a.dtype != dtype or a.shape != shape:
                 raise AssertionError(f"{path}: {a.dtype}{a.shape}, want {dtype}{shape}")
             if suffix.endswith("cam_order") and not np.array_equal(np.sort(a), np.arange(n)):
                 raise AssertionError(f"{path} is not a permutation")
-            if a.dtype.kind == "f" and not suffix.startswith("dsa") and not np.isfinite(a).all():
+            if a.dtype.kind == "f" and np.isnan(a).any():
+                raise AssertionError(f"{path} has NaN values")
+            if (a.dtype.kind == "f" and not suffix.startswith(("dsa", "pc-lsa"))
+                    and not np.isfinite(a).all()):
                 raise AssertionError(f"{path} has non-finite values")
             found[(ds, suffix)] = a
         extra = {os.path.basename(p) for p in os.listdir(subdir("priorities"))} - {
             f"{family}_{d}_0_{s}.npy" for d in ("nominal", "ood")
-            for s in expected_artifacts(family, n)
+            for s in expected
         }
         if extra:
             raise AssertionError(f"{family}: unexpected artifacts {sorted(extra)}")
@@ -936,21 +988,22 @@ def read_artifacts(family: str, n: int):
     return found, records
 
 
-def run_slice(family: str, params, data, dev, root: str):
-    """evaluate() into ``root``; returns (phase seconds, artifacts, time records)."""
+def run_slice(family: str, params, data, dev, root: str, sa_names=SA_NAMES):
+    """evaluate() into ``root`` with the SA variants ``sa_names``; returns
+    (phase seconds, artifacts, time records, {variant: chosen k})."""
     cfg = PATHS[family]
     (x_tr, _), (x_nom, y_nom), (x_ood, y_ood) = data
     if x_ood.shape[0] != x_nom.shape[0]:
         raise AssertionError("the checks assume equal nominal and OOD sizes")
     os.environ["TIP_ASSETS"] = root
-    phases = eval_prioritization.evaluate(
+    phases, chosen_k = eval_prioritization.evaluate(
         model_id=0, case_study=family, model_def=cfg["model"](), params=params,
         training_dataset=x_tr, nominal_test_dataset=x_nom, nominal_test_labels=y_nom,
         ood_test_dataset=x_ood, ood_test_labels=y_ood,
         nc_activation_layers=cfg["nc"], sa_activation_layers=cfg["sa"],
-        dsa_badge_size=cfg["dsa_badge"], batch_size=cfg["batch"], device=dev,
+        dsa_badge_size=cfg["dsa_badge"], batch_size=cfg["batch"], device=dev, sa_names=sa_names,
     )
-    return (phases, *read_artifacts(family, x_nom.shape[0]))
+    return (phases, *read_artifacts(family, x_nom.shape[0], sa_names), chosen_k)
 
 
 def compare_small(family: str, card: dict, cpu: dict) -> dict:
@@ -994,34 +1047,229 @@ def apfd_report(art: dict) -> dict:
     return apfd
 
 
+def sa_report(art: dict, records: dict, chosen_k: dict) -> dict:
+    """Per SA variant: setup and score seconds on both datasets, the +inf
+    count of its scores; pc-mmdsa's chosen k."""
+    report = {"chosen_k": chosen_k, "variants": {}}
+    for name in SA_NAMES:
+        rec = {"setup_s": records["nominal"][name][0]}
+        for ds in ("nominal", "ood"):
+            rec[f"{ds}_score_s"] = records[ds][name][2]
+            rec[f"{ds}_cam_s"] = records[ds][name][3]
+            rec[f"{ds}_inf"] = int(np.isinf(art[(ds, f"{name}_scores")]).sum())
+        report["variants"][name] = rec
+    return report
+
+
+def apfd_table_row(family: str, root: str) -> dict:
+    """The family's APFD table (``plotters/eval_apfd_table``) over the path's
+    artifacts: {approach: [nominal, ood, time]}; every approach must have
+    both APFDs (VR only where the model has dropout)."""
+    os.environ["TIP_ASSETS"] = root
+    table = eval_apfd_table.apfd_table([family])
+    eval_apfd_table.add_reported_times(table, times_collector.load_times())
+    row = {approach: [cells[family, c] for c in eval_apfd_table.COLUMNS]
+           for (_, approach), cells in table.items()}
+    for approach, (nominal, ood, _) in row.items():
+        if approach == "VR" and not PATHS[family]["model"].has_dropout:
+            continue
+        if not (isinstance(nominal, float) and isinstance(ood, float)):
+            raise AssertionError(f"{family}: APFD table has no {approach}: {nominal}, {ood}")
+    return row
+
+
+def _fit_and_score(name: str, train_ats, train_pred, test_ats, test_pred, device):
+    """``name``'s registry scorer fitted on the training traces on
+    ``device``, its scores of the test traces, and the fit and score seconds."""
+    t0 = time.perf_counter()
+    prep = SharedTrainPrep(train_ats.to(device), train_pred, device)
+    scorer = SA_VARIANTS[name](VariantFitter(prep, device))
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = scorer(test_ats.to(device), test_pred)
+    return scorer, scores, fit_s, time.perf_counter() - t0
+
+
+def _lsa_log_densities(scorer, test_ats, test_pred, device) -> np.ndarray:
+    """pc-lsa's per-class KDE log densities of the test traces before the
+    exp (NaN for a class whose features were all dropped)."""
+    out = np.full(test_ats.shape[0], np.nan)
+    for c in np.unique(test_pred):
+        lsa = scorer.modal_sa[int(c)]
+        if lsa.kde is not None:
+            rows = np.flatnonzero(test_pred == c)
+            out[rows] = lsa.log_density(test_ats[rows].to(device)).cpu().numpy()
+    return out
+
+
+def _rel_gap(a: np.ndarray, b: np.ndarray) -> float:
+    """Largest relative gap of ``a`` to ``b`` over ``b``'s finite entries."""
+    fin = np.isfinite(b)
+    return float((np.abs(a[fin] - b[fin]) / np.abs(b[fin]).clip(1e-30)).max(initial=0.0))
+
+
+def _mlsa_rungs(scorer):
+    return [(m.gmm.n_components, m.gmm.reg_covar) for m in scorer.modal_sa.values()]
+
+
+def compare_sa_small(family: str, params, data, dev) -> dict:
+    """The four SA variants fitted and scored on the card and on the CPU
+    from the same traces (``SA_CHECK``; pc-mlsa on one class and its
+    features of highest variance where it says so): the same chosen k and
+    MLSA ``reg_covar`` rungs, the same +inf rows, finite scores (and
+    pc-lsa's log densities) within ``SA_RTOL``, SC-CAM orders equal in all
+    but ``SA_ORDER_CAP`` of their positions. On the convnets pc-mlsa is
+    also fitted at full width (``mlsa_full_width``). Returns the errors and
+    times per variant."""
+    cfg = PATHS[family]
+    n_train, n_test, mlsa_cut = SA_CHECK[family]
+    (x_tr, _), (x_nom, y_nom), _ = data
+    model = BaseModel(cfg["model"](), params, cfg["sa"], include_last_layer=True,
+                      batch_size=1024, device=dev)
+    train, test = model.get_activations(x_tr[:n_train]), model.get_activations(x_nom[:n_test])
+
+    def rows(outs):
+        return torch.cat([t.reshape(t.shape[0], -1) for t in outs[:-1]], dim=1).cpu()
+
+    train_ats, train_pred = rows(train), train[-1].argmax(1).cpu().numpy()
+    test_ats, test_pred = rows(test), test[-1].argmax(1).cpu().numpy()
+    picks = {name: (slice(None), slice(None), slice(None)) for name in NEW_SA}
+    if mlsa_cut is not None:
+        cls = int(np.bincount(test_pred).argmax())
+        tr = np.flatnonzero(train_pred == cls)[: mlsa_cut[0]]
+        top = np.sort(np.argsort(train_ats[tr].var(dim=0).numpy())[-mlsa_cut[1]:])
+        picks["pc-mlsa"] = (tr, np.flatnonzero(test_pred == cls), top)
+    sides = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        out = {}
+        for name in NEW_SA:
+            tr, te, cols = picks[name]
+            scorer, scores, fit_s, score_s = _fit_and_score(
+                name, train_ats[tr][:, cols], train_pred[tr], test_ats[te][:, cols],
+                test_pred[te], device)
+            k = getattr(scorer.discriminator, "best_k", None)
+            rungs = [m.gmm.reg_covar for m in scorer.modal_sa.values() if hasattr(m, "gmm")]
+            log_density = (_lsa_log_densities(scorer, test_ats, test_pred, device)
+                           if name == "pc-lsa" else None)
+            out[name] = (scores, k, rungs, fit_s, score_s, log_density)
+        sides[side] = out
+    report, breaches = {}, []
+    for name in NEW_SA:
+        a, k_card, rungs_card, fit_card, score_card, log_card = sides["card"][name]
+        b, k_cpu, rungs_cpu, fit_cpu, score_cpu, log_cpu = sides["cpu"][name]
+        rel = _rel_gap(a, b)
+        moved = int((_sc_cam_order(a) != _sc_cam_order(b)).sum())
+        if k_card != k_cpu or rungs_card != rungs_cpu:
+            breaches.append(f"{name}: card k={k_card}, rungs {rungs_card}; "
+                            f"CPU k={k_cpu}, rungs {rungs_cpu}")
+        if not np.array_equal(np.isinf(a), np.isinf(b)) or np.isnan(a).any() or np.isnan(b).any():
+            breaches.append(f"{name}: non-finite rows differ")
+        if rel > SA_RTOL:
+            breaches.append(f"{name}: rtol {rel} > {SA_RTOL}")
+        if moved > SA_ORDER_CAP * a.shape[0]:
+            breaches.append(f"{name}: {moved} of {a.shape[0]} SC-CAM positions differ")
+        report[name] = {"rows": [int(np.size(train_pred[picks[name][0]])), int(a.shape[0])],
+                        "features": int(train_ats[:1, picks[name][2]].shape[1]),
+                        "max_rel_err": rel, "cam_positions_moved": moved,
+                        "chosen_k": k_card, "reg_covar": rungs_card, "inf": int(np.isinf(a).sum()),
+                        "card_fit_s": fit_card, "card_score_s": score_card,
+                        "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu}
+        if log_card is not None:
+            log_rel = _rel_gap(log_card, log_cpu)
+            report[name]["log_density"] = {
+                "finite": int(np.isfinite(log_cpu).sum()), "max_rel_err": log_rel}
+            if not all(np.array_equal(f(log_card), f(log_cpu)) for f in (np.isnan, np.isinf)):
+                breaches.append(f"{name}: non-finite log densities differ")
+            if log_rel > SA_RTOL:
+                breaches.append(f"{name}: log densities rtol {log_rel} > {SA_RTOL}")
+    if mlsa_cut is not None:
+        report["mlsa_full_width"] = mlsa_full_width(family, model, train_ats, train_pred,
+                                                    x_nom, y_nom, dev, breaches)
+    print(json.dumps({"path": family, "sa_card_vs_cpu": report}))
+    if breaches:
+        raise AssertionError(f"{family} SA card vs CPU: " + "; ".join(breaches))
+    return report
+
+
+def mlsa_full_width(family: str, model, train_ats, train_pred, x_nom, y_nom, dev,
+                    breaches: list) -> dict:
+    """pc-mlsa at the tap's full width on the card and on the CPU: fitted on
+    every training row of ``SA_CHECK``'s set predicted as the nominal set's
+    most predicted class, scored on every nominal row predicted as it.
+    Gates finite scores and the APFD of each side's SC-CAM order (faults:
+    misclassified rows) within ``MLSA_APFD_GAP``, appending to
+    ``breaches``; reads each side's components and ``reg_covar`` rung, the
+    score gap and the SC-CAM positions moved."""
+    test = model.get_activations(x_nom)
+    test_pred = test[-1].argmax(1).cpu().numpy()
+    cls = int(np.bincount(test_pred).argmax())
+    te = np.flatnonzero(test_pred == cls)
+    test_ats = torch.cat([t.reshape(t.shape[0], -1) for t in test[:-1]], dim=1)[
+        torch.from_numpy(te).to(dev)].cpu()
+    del test
+    tr = np.flatnonzero(train_pred == cls)
+    faults = test_pred[te] != np.asarray(y_nom)[te]
+    got = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        scorer, scores, fit_s, score_s = _fit_and_score(
+            "pc-mlsa", train_ats[tr], train_pred[tr], test_ats, test_pred[te], device)
+        got[side] = (scores, _mlsa_rungs(scorer), fit_s, score_s)
+    (a, rungs_card, fit_card, score_card), (b, rungs_cpu, fit_cpu, score_cpu) = (
+        got["card"], got["cpu"])
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        breaches.append("pc-mlsa at full width: non-finite scores")
+    order_card, order_cpu = _sc_cam_order(a), _sc_cam_order(b)
+    apfd_card, apfd_cpu = apfd_from_order(faults, order_card), apfd_from_order(faults, order_cpu)
+    if not abs(apfd_card - apfd_cpu) <= MLSA_APFD_GAP:
+        breaches.append(f"pc-mlsa at full width: APFD {apfd_card} on the card, {apfd_cpu} on "
+                        f"the CPU, more than {MLSA_APFD_GAP} apart")
+    return {"class": cls, "rows": [int(tr.size), int(te.size)],
+            "features": int(train_ats.shape[1]), "faults": int(faults.sum()),
+            "components_reg_covar": {"card": rungs_card, "cpu": rungs_cpu},
+            "max_rel_err": _rel_gap(a, b),
+            "cam_positions_moved": int((order_card != order_cpu).sum()),
+            "apfd_card": apfd_card, "apfd_cpu": apfd_cpu,
+            "card_fit_s": fit_card, "card_score_s": score_card,
+            "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu}
+
+
 def run_path(family: str, params, data, dev, root: str) -> dict:
-    """The path at full size with the counters read around it, then the
-    small card-against-CPU comparison."""
+    """The path at full size with the counters read around it, its SA
+    variants' times and APFD table, then the small card-against-CPU
+    comparisons (the slice with DSA, then the four other SA variants)."""
     zero_counters()
     t0 = time.perf_counter()
-    phases, art, records = run_slice(family, params, data, dev, os.path.join(root, family))
+    path_root = os.path.join(root, family)
+    phases, art, records, chosen_k = run_slice(family, params, data, dev, path_root)
     seconds = time.perf_counter() - t0
     launches = read_counters()
     for name in PATHS[family]["kernels"]:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the {family} path")
     apfd = apfd_report(art)
+    sa = sa_report(art, records, chosen_k)
     print(json.dumps({"path": family, "sizes": PATHS[family]["sizes"], "slice_s": seconds,
                       "phases_s": phases, "launches": launches, "apfd": apfd}))
     print(json.dumps({"path": family, "time_records": records}))
+    print(json.dumps({"path": family, "sa": sa}))
+    table = apfd_table_row(family, path_root)
+    print(json.dumps({"path": family, "apfd_table": table}))
     small = (
         (data[0][0][:SMALL_TRAIN], data[0][1][:SMALL_TRAIN]),
         (data[1][0][:SMALL_TEST], data[1][1][:SMALL_TEST]),
         (data[2][0][:SMALL_TEST], data[2][1][:SMALL_TEST]),
     )
-    _, card_art, _ = run_slice(family, params, small, dev, os.path.join(root, f"{family}_card"))
-    _, cpu_art, _ = run_slice(family, params, small, torch.device("cpu"),
-                              os.path.join(root, f"{family}_cpu"))
+    _, card_art, _, _ = run_slice(family, params, small, dev,
+                                  os.path.join(root, f"{family}_card"), ("dsa",))
+    _, cpu_art, _, _ = run_slice(family, params, small, torch.device("cpu"),
+                                 os.path.join(root, f"{family}_cpu"), ("dsa",))
     small_report = compare_small(family, card_art, cpu_art)
     flips = {k: v for k, v in small_report.items() if v}
     print(json.dumps({"path": family, "small_card_vs_cpu_flips": flips}))
+    sa_small = compare_sa_small(family, params, data, dev)
     return {"sizes": PATHS[family]["sizes"], "slice_s": seconds, "phases_s": phases,
-            "launches": launches, "apfd": apfd, "time_records": records, "small": small_report}
+            "launches": launches, "apfd": apfd, "time_records": records, "sa": sa,
+            "apfd_table": table, "small": small_report, "sa_small": sa_small}
 
 
 def main() -> int:

@@ -125,7 +125,7 @@ class CaseStudy:
         for model_id in model_ids:
             params = params_from_jax(self.load_params(model_id))
             logger.info("[%s] prioritization eval for run %d", self.spec.name, model_id)
-            phases[model_id] = eval_prioritization.evaluate(
+            phases[model_id], _ = eval_prioritization.evaluate(
                 model_id=model_id,
                 case_study=self.spec.name,
                 model_def=self.model_def,

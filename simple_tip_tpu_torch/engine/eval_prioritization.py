@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``engine/eval_prioritization.py``
 ``evaluate`` on its default per-phase route: fault predictors (uncertainty
 quantifiers) on nominal and OOD, then the 12 neuron-coverage configurations,
-then surprise adequacy (DSA only in this port so far), persisting every
-score, CAM order, misclassification mask and time record under the same
-naming contract ``priorities/{cs}_{ds}_{model}_{type}.npy`` and
+then the five surprise-adequacy variants (dsa, pc-lsa, pc-mdsa, pc-mlsa,
+pc-mmdsa), persisting every score, CAM order, misclassification mask and
+time record of the 39 approaches under the same naming contract
+``priorities/{cs}_{ds}_{model}_{type}.npy`` and
 ``times/{cs}_{ds}_{model}_{metric}``, with the same dtypes and shapes.
 """
 
@@ -13,7 +14,7 @@ import os
 import pickle
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -21,7 +22,7 @@ from simple_tip_tpu_torch.config import subdir
 from simple_tip_tpu_torch.device import DeviceLike, resolve, synchronize
 from simple_tip_tpu_torch.engine.coverage_handler import CoverageWorker
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
-from simple_tip_tpu_torch.engine.surprise_handler import SurpriseHandler
+from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS, SurpriseHandler
 
 
 def _persist(case_study: str, dataset_id: str, data_type: str, model_id: int, data):
@@ -72,7 +73,8 @@ def evaluate(
     dsa_badge_size: Optional[int] = None,
     batch_size: int = 32,
     device: DeviceLike = None,
-) -> Dict[str, float]:
+    sa_names: Sequence[str] = tuple(SA_VARIANTS),
+) -> Tuple[Dict[str, float], Dict[str, int]]:
     """Run the test-prioritization experiments for one model.
 
     ``model_def`` is one of the port's models (``MnistConvNet``,
@@ -80,8 +82,9 @@ def evaluate(
     output for it (``bridge.params_from_jax``). ``dsa_badge_size`` chunks
     DSA's scoring and never changes a score. VR is written only for a model
     with dropout. ``device=None`` runs on the card and raises without one;
-    ``device="cpu"`` runs the plain versions. Returns the wall seconds of
-    each phase.
+    ``device="cpu"`` runs the plain versions. ``sa_names`` are the SA
+    variants scored (all five by default). Returns the wall seconds of each
+    phase, and the k that each k-means-clustered SA variant chose.
     """
     device = resolve(device)
     phases = {}
@@ -107,7 +110,7 @@ def evaluate(
         device,
     )
     phases["neuron_coverage"], start = _clock(device) - start, _clock(device)
-    _eval_surprise(
+    chosen_k = _eval_surprise(
         case_study,
         model_def,
         params,
@@ -118,9 +121,10 @@ def evaluate(
         training_dataset,
         dsa_badge_size,
         device,
+        sa_names,
     )
     phases["surprise"], start = _clock(device) - start, _clock(device)
-    return phases
+    return phases, chosen_k
 
 
 def _clock(device) -> float:
@@ -179,7 +183,8 @@ def _eval_surprise(
     training_dataset,
     dsa_badge_size,
     device,
-):
+    sa_names,
+) -> Dict[str, int]:
     sa_worker = SurpriseHandler(
         model_def,
         params,
@@ -187,8 +192,9 @@ def _eval_surprise(
         training_dataset=training_dataset,
         device=device,
         dsa_badge_size=dsa_badge_size,
+        sa_names=sa_names,
     )
-    results = sa_worker.evaluate_all(
+    results, chosen_k = sa_worker.evaluate_all(
         datasets={"nominal": nominal_test_dataset, "ood": ood_test_dataset}
     )
     for metric, values in results.items():
@@ -196,3 +202,4 @@ def _eval_surprise(
             _persist_times(case_study, dataset, model_id, metric, times)
             _persist(case_study, dataset, f"{metric}_scores", model_id, sa)
             _persist(case_study, dataset, f"{metric}_cam_order", model_id, cam_order)
+    return chosen_k

@@ -1,35 +1,47 @@
-"""Surprise-adequacy engine: fit DSA on the training traces, score every test
-set, and derive the surprise-coverage CAM order.
+"""Surprise-adequacy engine: fit the five SA variants on the training
+traces, score every test set, and derive each variant's surprise-coverage
+CAM order.
 
 Counterpart of the JAX package's ``engine/surprise_handler.py`` flow
-(``evaluate_all``: fit -> score -> SC-CAM per dataset) with the registry
-limited to DSA at 30% subsampling (``dsa_badge_size`` chunks its scoring,
-as in the JAX package); the four other variants (pc-lsa,
-pc-mdsa, pc-mlsa, pc-mmdsa) are not ported yet. Train traces and
-predictions come from one forward pass over ``sa_layers`` plus the output;
-the time record is ``[setup, pred, quant, cam]`` with setup including the
-train-trace collection; the SC bucket upper bound is the maximum finite
-score.
+(``evaluate_all``: fit -> score -> SC-CAM per dataset) with its registry and
+hyperparameters: DSA at 30% subsampling (``dsa_badge_size`` chunks its
+scoring), per-class LSA (``max_features=300``), per-class MDSA, per-class
+MLSA with 3 components, and k-means-clustered MDSA with k in 2..5 at 30%
+subsampling (``subsampling_seed=0``). Train traces and predictions come
+from one forward pass over ``sa_layers`` plus the output, flattened and
+partitioned by class once (``engine/sa_prep.py``). The time record is
+``[setup, pred, quant, cam]``, setup being the train-trace collection, the
+variant's share of the shared preparation and its own fit; the SC bucket
+upper bound is the maximum finite score (an LSA density that underflows
+gives +inf, which lands in no bucket).
 """
 
 import logging
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from simple_tip_tpu_torch.device import DeviceLike
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
+from simple_tip_tpu_torch.engine.sa_prep import SharedTrainPrep, VariantFitter
 from simple_tip_tpu_torch.ops.prioritizers import cam
-from simple_tip_tpu_torch.ops.surprise import DSA, SurpriseCoverageMapper
+from simple_tip_tpu_torch.ops.surprise import LSA, MDSA, MLSA, SurpriseCoverageMapper
 from simple_tip_tpu_torch.ops.timer import Timer
 
 logger = logging.getLogger(__name__)
 
 NUM_SC_BUCKETS = 1000
 
-SA_VARIANTS: Dict[str, Callable] = {
-    "dsa": lambda ats, preds, badge: DSA(ats, preds, subsampling=0.3, badge_size=badge),
+# {sa_name: fitter -> scorer}, the JAX package's registry with its hyperparameters
+SA_VARIANTS: Dict[str, Callable[[VariantFitter], Callable]] = {
+    "dsa": lambda fit: fit.dsa(subsampling=0.3),
+    "pc-lsa": lambda fit: fit.by_class(lambda a: LSA(a, device=fit.device)),
+    "pc-mdsa": lambda fit: fit.by_class(lambda a: MDSA(a, device=fit.device)),
+    "pc-mlsa": lambda fit: fit.by_class(lambda a: MLSA(a, num_components=3, device=fit.device)),
+    "pc-mmdsa": lambda fit: fit.with_kmeans(
+        lambda a: MDSA(a, device=fit.device), potential_k=range(2, 6), subsampling=0.3
+    ),
 }
 
 DatasetResult = Tuple[np.ndarray, np.ndarray, List[float]]
@@ -56,7 +68,9 @@ class SurpriseHandler:
         batch_size: int = 1024,
         device: DeviceLike = None,
         dsa_badge_size: Optional[int] = None,
+        sa_names: Sequence[str] = tuple(SA_VARIANTS),
     ):
+        self.sa_names = tuple(sa_names)
         self.sa_layers = list(sa_layers)
         self.dsa_badge_size = dsa_badge_size
         self.training_dataset = training_dataset
@@ -77,8 +91,10 @@ class SurpriseHandler:
 
     def evaluate_all(
         self, datasets: Dict[str, np.ndarray]
-    ) -> Dict[str, Dict[str, DatasetResult]]:
-        """``{sa_name: {ds_name: (scores, cam_order, times)}}``."""
+    ) -> Tuple[Dict[str, Dict[str, DatasetResult]], Dict[str, int]]:
+        """``{sa_name: {ds_name: (scores, cam_order, times)}}`` for the
+        handler's ``sa_names``, and ``{sa_name: k}`` for the variants whose
+        modals come from silhouette-scored k-means (pc-mmdsa)."""
         traces = {}
         for ds_name, dataset in datasets.items():
             with Timer(device=self.device) as pred_timer:
@@ -86,13 +102,20 @@ class SurpriseHandler:
             traces[ds_name] = (ats, preds, pred_timer.get())
         with Timer(device=self.device) as train_at_timer:
             train_ats, train_pred = self._traces(self.training_dataset)
+        prep = SharedTrainPrep(train_ats, train_pred, self.device)
+        fitter = VariantFitter(prep, self.device, self.dsa_badge_size)
 
         results: Dict[str, Dict[str, DatasetResult]] = {}
-        for sa_name, constructor in SA_VARIANTS.items():
+        chosen_k: Dict[str, int] = {}
+        for sa_name in self.sa_names:
             logger.info("fitting %s", sa_name)
             with Timer(device=self.device) as fit_timer:
-                scorer = constructor(train_ats, train_pred, self.dsa_badge_size)
-            setup_s = train_at_timer.get() + fit_timer.get()
+                scorer = SA_VARIANTS[sa_name](fitter)
+            setup_s = train_at_timer.get() + prep.debit_for(sa_name) + fit_timer.get()
+            k = getattr(getattr(scorer, "discriminator", None), "best_k", None)
+            if k is not None:
+                chosen_k[sa_name] = k
+                logger.info("%s chose k=%d", sa_name, k)
             per_ds: Dict[str, DatasetResult] = {}
             for ds_name, (ats, preds, pred_s) in traces.items():
                 logger.info("scoring %s on %s", sa_name, ds_name)
@@ -106,4 +129,4 @@ class SurpriseHandler:
                     [setup_s, pred_s, quant_timer.get(), cam_timer.get()],
                 )
             results[sa_name] = per_ds
-        return results
+        return results, chosen_k

@@ -9,6 +9,7 @@ import torch
 from simple_tip_tpu.ops import prioritizers as jax_prio
 from simple_tip_tpu_torch.ops import prioritizers
 from simple_tip_tpu_torch.ops.coverage import packbits
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _profiles(seed: int, n: int = 40, w: int = 70):

@@ -11,8 +11,8 @@ case study.
   port-written bytes back equal; and on disk, either package's
   ``CaseStudy`` reads the other's ``save_params``.
 - ``CaseStudy.train`` writes one checkpoint per run and reuses them;
-  ``run_prio_eval`` writes the slice's artifact set under the JAX names,
-  dtypes and shapes.
+  ``run_prio_eval`` writes the artifact set of the 39 approaches under the
+  JAX names, dtypes and shapes.
 """
 
 import os
@@ -34,6 +34,7 @@ from simple_tip_tpu_torch.casestudies import base, mini
 from simple_tip_tpu_torch.models.init import init_params
 from simple_tip_tpu_torch.models.train import TrainConfig
 from simple_tip_tpu_torch.utils import checkpoint
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FAMILIES = {
     "mnist": (FlaxMnistConvNet(), np.zeros((1, 28, 28, 1), np.float32)),
@@ -137,12 +138,14 @@ def test_checkpoint_bytes_match_flax_both_ways(family):
 
 
 def _tiny_spec(name: str) -> base.CaseStudySpec:
-    """A mini-mnist-shaped study at 200 training and 40 test images."""
+    """A mini-mnist-shaped study at 200 training and 40 test images; SA on
+    the softmax tap (the five SA variants at 1,600 features take minutes on
+    the CPU)."""
     return base.CaseStudySpec(
         name=name, model_factory=mini.MINI_CASE_STUDIES["mini-mnist"].model_factory,
         loader=mini.image_loader((28, 28, 1), seed=41, n_train=200, n_test=40),
         train_cfg=TrainConfig(batch_size=64, epochs=2, learning_rate=2e-3, validation_split=0.1),
-        nc_activation_layers=(0, 1, 2, 3), sa_activation_layers=(3,),
+        nc_activation_layers=(0, 1, 2, 3), sa_activation_layers=(6,),
         prediction_badge_size=128, num_classes=10,
     )
 
@@ -173,7 +176,7 @@ def test_case_study_trains_reuses_and_scores(tmp_path, monkeypatch):
                               cs.load_params(1)["Dense_0"]["kernel"])
     cs.run_prio_eval([0], device="cpu")
     prio = os.listdir(tmp_path / "priorities")
-    assert len(prio) == 2 * (1 + 5 + 2 * 12 + 2)  # mask, 5 uncertainties, NC, dsa
+    assert len(prio) == 2 * (1 + 5 + 2 * 12 + 2 * 5)  # mask, 5 uncertainties, NC, 5 SA
     for ds, n in (("nominal", 40), ("ood", 80)):
         assert np.load(tmp_path / "priorities" / f"tiny-mnist_{ds}_0_is_misclassified.npy").shape == (n,)
         order = np.load(tmp_path / "priorities" / f"tiny-mnist_{ds}_0_NAC_0_cam_order.npy")

@@ -19,6 +19,7 @@ from simple_tip_tpu_torch.data import synthetic
 from simple_tip_tpu_torch.models import ImdbTransformer
 from simple_tip_tpu_torch.models.init import init_params
 from simple_tip_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

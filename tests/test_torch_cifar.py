@@ -31,6 +31,7 @@ from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.models import Cifar10ConvNet
 from simple_tip_tpu_torch.models import predict as predict_module
 from simple_tip_tpu_torch.ops import fused_forward
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def cifar_flax_params(seed: int = 0):

@@ -15,6 +15,7 @@ from simple_tip_tpu.ops import coverage as jax_coverage
 from simple_tip_tpu.ops.stats import DeviceAggregateStatisticsCollector as JaxStats
 from simple_tip_tpu_torch.ops import coverage
 from simple_tip_tpu_torch.ops.stats import DeviceAggregateStatisticsCollector
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [(6, 6, 4), (3, 3, 4), (2, 2, 8)]
 

@@ -23,6 +23,7 @@ from simple_tip_tpu.ops.surprise import DSA as JaxDSA
 from simple_tip_tpu_torch.ops import dsa_cuda
 from simple_tip_tpu_torch.ops import surprise as port_surprise
 from simple_tip_tpu_torch.ops.surprise import DSA, subsample_indices
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 INT_MAX = 2**31 - 1
 

@@ -19,6 +19,7 @@ import torch
 
 from simple_tip_tpu.ops.flash_attention import flash_attention as pallas_flash_attention
 from simple_tip_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [
     ((2, 128, 4, 16), 128),  # exact block multiple

@@ -30,6 +30,7 @@ from simple_tip_tpu_torch.models import ImdbTransformer
 from simple_tip_tpu_torch.models.train import categorical_crossentropy
 from simple_tip_tpu_torch.ops import flash_attention as fa
 from test_torch_transformer import imdb_flax_params, tokens
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [
     ((2, 37, 2, 8), 37),  # ragged: shorter than one tile

@@ -29,6 +29,7 @@ import torch
 import chip_smoke
 from simple_tip_tpu.ops.flash_attention import flash_attention as pallas_flash_attention
 from simple_tip_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [((4, 100, 2, 32), 100), ((2, 300, 2, 8), 300), ((1, 70, 1, 128), 129)]
 LOG2E = 1.4426950408889634

@@ -36,6 +36,7 @@ import chip_smoke
 from simple_tip_tpu.ops.flash_attention import flash_attention as pallas_flash_attention
 from simple_tip_tpu_torch.ops import flash_attention as fa
 from test_torch_flash_backward_tc import _tf32
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SHAPES = [((1, 40, 2, 160), 40), ((1, 40, 2, 256), 40), ((1, 37, 2, 160), 53)]
 LOG2E = 1.4426950408889634

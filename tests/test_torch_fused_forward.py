@@ -19,6 +19,7 @@ from simple_tip_tpu_torch.models import MnistConvNet
 from simple_tip_tpu_torch.models.predict import predict
 from simple_tip_tpu_torch.ops import fused_forward
 from test_torch_model import flax_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _inputs(n: int, seed: int) -> np.ndarray:

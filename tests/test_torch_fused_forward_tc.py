@@ -35,6 +35,7 @@ from simple_tip_tpu.ops.fused_forward import fused_mnist_probs as pallas_mnist_p
 from simple_tip_tpu_torch.bridge import glorot_params, params_from_jax
 from simple_tip_tpu_torch.ops import fused_forward
 from test_torch_flash_backward_tc import _tf32
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MNIST_TILE, CIFAR_TILE = 5, 4  # the kernels' images a tile
 CARD_ATOL = 1e-5  # chip_smoke.py's B1/B3 check against the plain versions

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``simple_tip_tpu_torch``, not
-``chip_smoke.py`` and not the port's card scripts import jax, flax or
-anything of ``simple_tip_tpu``
-(checked on the source, so lazy imports inside functions count too), and
-every module imports without a card."""
+``chip_smoke.py`` and not the port's card scripts import jax, flax,
+anything of ``simple_tip_tpu``, pandas or sklearn (the card machine has
+neither of the last two), checked on the source, so lazy imports inside
+functions count too; and every module imports without a card."""
 
 import ast
 import importlib
@@ -14,7 +14,7 @@ import pytest
 import simple_tip_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "simple_tip_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "simple_tip_tpu", "pandas", "sklearn")
 
 
 def _port_sources():

@@ -19,6 +19,7 @@ from simple_tip_tpu_torch.bridge import glorot_params, params_from_jax
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.models import MnistConvNet
 from simple_tip_tpu_torch.models.convnet import dropout
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def flax_params(seed: int = 0):

@@ -6,6 +6,7 @@ import pytest
 
 from simple_tip_tpu.data import synthetic as jax_synthetic
 from simple_tip_tpu_torch.data import synthetic
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

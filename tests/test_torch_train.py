@@ -34,6 +34,7 @@ from simple_tip_tpu_torch.parallel.ensemble import stack_params, train_ensemble,
 from test_torch_cifar import cifar_flax_params
 from test_torch_model import flax_params
 from test_torch_transformer import imdb_flax_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MAXLEN = 32
 

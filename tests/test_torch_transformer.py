@@ -25,6 +25,7 @@ from simple_tip_tpu_torch.models import ImdbTransformer
 from simple_tip_tpu_torch.models.predict import mc_dropout_votes, predict, to_device
 from simple_tip_tpu_torch.models.transformer import FlaxLayerNorm
 from simple_tip_tpu_torch.ops import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DENSE, FLASH = "MultiHeadDotProductAttention_0", "SequenceParallelSelfAttention_0"
 

@@ -16,6 +16,7 @@ from simple_tip_tpu_torch.engine.model_handler import DROPOUT_SAMPLE_SIZE, BaseM
 from simple_tip_tpu_torch.models import MnistConvNet
 from simple_tip_tpu_torch.ops import uncertainty
 from test_torch_model import flax_params
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _probs(seed: int) -> np.ndarray:
