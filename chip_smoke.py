@@ -88,7 +88,37 @@ Needs one CUDA card; exits non-zero without one (and without the
    their positions; on MNIST and CIFAR-10 pc-mlsa is also read at full
    width on one class's rows (``mlsa_full_width``: finite scores and the
    APFD of both sides' SC-CAM orders within 0.02 gated; each side's
-   ``reg_covar`` rung, the score gap and SC-CAM moves printed).
+   ``reg_covar`` rung, the score gap and SC-CAM moves printed, and the rows
+   that move in or out of its top-k and SC-CAM first-k at k = 20% of the
+   class's rows, the share that active learning selects);
+6. MNIST's active-learning phase (``CaseStudy.run_active_learning_eval``
+   on run 0's checkpoint, the launch counters set to 0 just before and
+   read just after: B1 and B2 must launch) at full width with the JAX
+   registry's observed share 0.5 and 1,000 selected rows, its 80 retrains
+   through ``parallel/al_ensemble.py``, with two cuts: **retrains run one
+   epoch** (the registry trains 15) and **the AL training base is the
+   first 12,000 of the 60,000 training rows**. Checks: the 81 pickles'
+   names and layout, every accuracy in [0, 1], the selections' sanity
+   checks (inside ``evaluate``), each retrain's one epoch, and the random
+   baseline's retrain at ``AL_RANDOM_FLOOR`` on both nominal splits. Prints the seconds of scoring the original model, of
+   each selection (FP / NC / SA), of all retrains and per retrain, and of
+   scoring the retrained models, and MNIST's row of the AL table
+   (``plotters/eval_active_learning_table``);
+7. the four selection builders on a small subset (``AL_CHECK``) on the card
+   and on the CPU, rows moved per selection counted: the random baseline
+   equal; an uncertainty's top-k equal but for rows within 1e-5 of its
+   edge; a coverage top-k or CAM first-k equal but where the metric's
+   scores differ by the known flipped threshold bits (at most 2 per row,
+   1% of rows); an SA top-k equal but for rows within ``SA_RTOL`` of its
+   edge, an SC-CAM first-k within ``SA_ORDER_CAP`` of its rows; VR is
+   counted only (other generators). The SA builder runs dsa, pc-lsa,
+   pc-mdsa and pc-mmdsa: pc-mlsa's CPU fit at 1,600 features takes about
+   a minute a class, and its known card/CPU gap is counted at full width
+   in phase 5;
+8. ``at_collection`` (``CaseStudy.collect_activations``) of MNIST run 0 on
+   the first 1,000 rows of each set, on the card and on the CPU: the same
+   files, dtypes and shapes, labels byte-equal, each tap within 1e-5 of its
+   largest magnitude.
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does each of its products (``UNITS``): 3xTF32
@@ -108,6 +138,7 @@ flax's initializers drawn from the run id.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import pickle
@@ -127,7 +158,7 @@ from simple_tip_tpu_torch.casestudies.base import CaseStudy, CaseStudySpec
 from simple_tip_tpu_torch.config import subdir
 from simple_tip_tpu_torch.data import synthetic
 from simple_tip_tpu_torch.device import resolve
-from simple_tip_tpu_torch.engine import eval_prioritization
+from simple_tip_tpu_torch.engine import eval_active_learning, eval_prioritization
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.engine.sa_prep import SharedTrainPrep, VariantFitter
 from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS, _sc_cam_order
@@ -141,7 +172,8 @@ from simple_tip_tpu_torch.models.train import (
 )
 from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
-from simple_tip_tpu_torch.plotters import eval_apfd_table, times_collector
+from simple_tip_tpu_torch.plotters import eval_active_learning_table, eval_apfd_table, times_collector
+from simple_tip_tpu_torch.plotters.utils import APPROACHES
 from simple_tip_tpu_torch.utils import checkpoint
 
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
@@ -216,6 +248,28 @@ PATHS = {
 # reached 0.954-0.961 on all three (CIFAR-10 and IMDB on an H100, MNIST on
 # the CPU); the stand-ins' 8% ambiguous samples cap it near 0.96.
 ACCURACY_FLOOR = {"mnist": 0.85, "cifar10": 0.85, "imdb": 0.85}
+# MNIST's active-learning phase: the JAX registry's observed share and
+# selection size, and the cut of its training
+# base (retrains run the paths' one epoch). The random baseline's retrain
+# must reach AL_RANDOM_FLOOR on both nominal splits (its 92 steps on the
+# cut base; the full-set epoch reaches ACCURACY_FLOOR).
+AL_FAMILY = "mnist"
+AL_TRAIN_ROWS = 12_000
+AL_OBSERVED_SHARE = 0.5
+AL_NUM_SELECTED = 1000
+AL_RANDOM_FLOOR = 0.7
+# The card-against-CPU check of the selection builders: training rows (as
+# SA_CHECK's, so that MDSA's covariances are not singular), test rows per
+# set (half of them observed), rows selected (20% of the observed, as in the
+# AL phase), and the SA variants (pc-mlsa's CPU fit at 1,600 features takes
+# about a minute a class; its gap is read at full width in phase 5).
+AL_CHECK = (20_000, 500, 50)
+AL_CHECK_SA = ("dsa", "pc-lsa", "pc-mdsa", "pc-mmdsa")
+AL_UNCERTAINTY_ATOL = 1e-5
+# at_collection: rows dumped per set, and the tolerance of each tap (card
+# against CPU) relative to the tap's largest magnitude
+ACTIVATION_ROWS = 1_000
+ACTIVATION_RTOL = 1e-5
 COUNTERS = {
     "fused_mnist_forward": (fused_forward, "LAUNCHES"),
     "fused_cifar10_forward": (fused_forward, "CIFAR_LAUNCHES"),
@@ -1228,9 +1282,24 @@ def mlsa_full_width(family: str, model, train_ats, train_pred, x_nom, y_nom, dev
             "components_reg_covar": {"card": rungs_card, "cpu": rungs_cpu},
             "max_rel_err": _rel_gap(a, b),
             "cam_positions_moved": int((order_card != order_cpu).sum()),
+            "selection_moved": mlsa_selection_moved(a, b, order_card, order_cpu),
             "apfd_card": apfd_card, "apfd_cpu": apfd_cpu,
             "card_fit_s": fit_card, "card_score_s": score_card,
             "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu}
+
+
+def moved_rows(card, cpu) -> int:
+    """Rows that one selection holds and the other does not."""
+    return len(set(np.asarray(card).tolist()) - set(np.asarray(cpu).tolist()))
+
+
+def mlsa_selection_moved(card, cpu, order_card, order_cpu) -> dict:
+    """pc-mlsa's known card/CPU gap as active learning sees it: the rows
+    moved in its top-k and its SC-CAM first-k at k = 20% of the rows (the
+    AL phase selects 1,000 of 5,000 observed rows)."""
+    k = max(1, card.shape[0] // 5)
+    return {"k": k, "top_k": moved_rows(np.argsort(card)[-k:], np.argsort(cpu)[-k:]),
+            "sc_cam_first_k": moved_rows(order_card[:k], order_cpu[:k])}
 
 
 def run_path(family: str, params, data, dev, root: str) -> dict:
@@ -1272,6 +1341,229 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
             "apfd_table": table, "small": small_report, "sa_small": sa_small}
 
 
+def al_case_study(data) -> CaseStudy:
+    """MNIST's case study for the AL phase: the path's one-epoch train
+    config and the registry's AL settings, its training base cut to the
+    first ``AL_TRAIN_ROWS`` rows."""
+    (x_tr, y_tr), nominal, ood = data
+    cs = case_study(AL_FAMILY, ((x_tr[:AL_TRAIN_ROWS], y_tr[:AL_TRAIN_ROWS]), nominal, ood))
+    return CaseStudy(dataclasses.replace(cs.spec, al_observed_share=AL_OBSERVED_SHARE,
+                                         al_num_selected=AL_NUM_SELECTED))
+
+
+def read_al_pickles(family: str, has_dropout: bool) -> dict:
+    """Load and check run 0's AL pickles: one per approach and observed
+    split (VR only with dropout) plus the original model's, each the four
+    splits' accuracies in the JAX package's order, Python floats in [0, 1]."""
+    folder = subdir("active_learning")
+    approaches = [a for a in [*APPROACHES, "random"] if a != "VR" or has_dropout]
+    want = {f"{family}_0_{a}_{obs}.pickle" for a in approaches for obs in ("nominal", "ood")}
+    want.add(f"{family}_0_original_na.pickle")
+    found = set(os.listdir(folder))
+    if found != want:
+        raise AssertionError(f"AL pickles: missing {sorted(want - found)}, "
+                             f"unexpected {sorted(found - want)}")
+    splits = [(s, p) for s in ("nominal", "ood") for p in ("observed", "future")]
+    out = {}
+    for name in sorted(want):
+        with open(os.path.join(folder, name), "rb") as f:
+            acc = pickle.load(f)
+        if list(acc) != splits or not all(type(v) is float and 0 <= v <= 1 for v in acc.values()):
+            raise AssertionError(f"{name}: {acc} is not the four splits' accuracies")
+        out[name[len(f"{family}_0_"):-len(".pickle")]] = acc
+    return out
+
+
+def run_active_learning(data, dev, root: str) -> dict:
+    """MNIST's AL phase on run 0's checkpoint (in ``root``/train) through
+    ``CaseStudy.run_active_learning_eval`` with the counters read around
+    it. Checks launches, pickles, each retrain's epoch and the random
+    baseline's floor; prints its seconds and its AL table row."""
+    cs = al_case_study(data)
+    os.environ["TIP_ASSETS"] = os.path.join(root, "train")
+    zero_counters()
+    t0 = time.perf_counter()
+    [run] = cs.run_active_learning_eval([0], device=dev).values()
+    seconds = time.perf_counter() - t0
+    phases, members = run.seconds, run.retrain_epochs
+    launches = read_counters()
+    for name in PATHS[AL_FAMILY]["kernels"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the {AL_FAMILY} AL path")
+    accuracies = read_al_pickles(AL_FAMILY, PATHS[AL_FAMILY]["model"].has_dropout)
+    n_train = training_rows(AL_TRAIN_ROWS + AL_NUM_SELECTED, cs.spec.train_cfg.validation_split)
+    steps = -(-n_train // cs.spec.train_cfg.batch_size)
+    if len(members) != len(accuracies) - 1:
+        raise AssertionError(f"{len(members)} retrains for {len(accuracies) - 1} selections")
+    for i, history in enumerate(members):
+        if [r["steps"] for r in history] != [steps]:
+            raise AssertionError(f"AL retrain {i}: epochs {history}, want one of {steps} steps")
+    for obs in ("nominal", "ood"):
+        for split in (("nominal", "observed"), ("nominal", "future")):
+            acc = accuracies[f"random_{obs}"][split]
+            if not acc >= AL_RANDOM_FLOOR:
+                raise AssertionError(f"random {obs} retrain: {split} accuracy {acc} below "
+                                     f"{AL_RANDOM_FLOOR}")
+    table = eval_active_learning_table.active_learning_table([AL_FAMILY])
+    row = {approach: [cells[col] for col in eval_active_learning_table.columns([AL_FAMILY])]
+           for (_, approach), cells in table.items()}
+    retrains = len(members)
+    record = {
+        "family": AL_FAMILY, "seconds": seconds, "phases_s": phases,
+        "retrain_mean_s": phases["retrain"] / retrains, "retrains": retrains,
+        "steps_per_retrain": steps,
+        "member_epoch_s": [h[0]["seconds"] for h in members],
+        "member_mean_loss": [h[0]["mean_loss"] for h in members],
+        "launches": launches,
+        "reduced": {"epochs": "1 (registry 15)",
+                    "train_rows": f"{AL_TRAIN_ROWS} of {PATHS[AL_FAMILY]['sizes'][0]}"},
+        "settings": {"observed_share": AL_OBSERVED_SHARE, "num_selected": AL_NUM_SELECTED},
+        "accuracies": {name: {f"{s}:{p}": v for (s, p), v in acc.items()}
+                       for name, acc in accuracies.items()},
+    }
+    summary = {k: record[k] for k in ("family", "seconds", "phases_s", "retrain_mean_s",
+                                      "retrains", "steps_per_retrain", "launches", "reduced",
+                                      "settings")}
+    print(json.dumps({"active_learning": summary}))
+    print(json.dumps({"active_learning_table": {
+        "columns": eval_active_learning_table.columns([AL_FAMILY]), "rows": row}}))
+    record["table"] = row
+    return record
+
+
+def _gaps_to_edge(values: np.ndarray, rows, k: int) -> np.ndarray:
+    """|value - the k-th largest value| of ``rows`` (0 for equal values,
+    +inf ones included)."""
+    edge = np.sort(values)[-k]
+    v = values[np.asarray(sorted(rows), dtype=np.int64)]
+    with np.errstate(invalid="ignore"):  # inf - inf, which the tie replaces
+        return np.where(v == edge, 0.0, np.abs(v - edge))
+
+
+def al_selections(params, datasets, x_train, k: int, device) -> tuple:
+    """The four builders on one device: (selections, the uncertainties, NC
+    scores and SA values their top-k were taken from, seconds)."""
+    cfg = PATHS[AL_FAMILY]
+    model = cfg["model"]()
+    t0 = time.perf_counter()
+    fp, unc = eval_active_learning._get_fp_selection(model, params, datasets, k, cfg["batch"],
+                                                     device)
+    nc, nc_scores = eval_active_learning._get_nc_selection(model, params, x_train, datasets,
+                                                           cfg["nc"], k, cfg["batch"], device)
+    sa, sa_scores = eval_active_learning._get_sa_selection(model, params, x_train, datasets,
+                                                           cfg["sa"], k, cfg["dsa_badge"],
+                                                           device, AL_CHECK_SA)
+    sel = {**fp, **nc, **sa, **eval_active_learning._get_random_section(datasets, k)}
+    eval_active_learning._selection_sanity_checks(k, sel)
+    return sel, unc, nc_scores, sa_scores, time.perf_counter() - t0
+
+
+def compare_al_selections(params, data, dev) -> dict:
+    """The four selection builders on a small subset (``AL_CHECK``) on the
+    card and on the CPU: rows moved per selection, gated as phase 7 of the
+    module docstring says."""
+    n_train, n_test, k = AL_CHECK
+    (x_tr, _), (x_nom, y_nom), (x_ood, y_ood) = data
+    datasets = eval_active_learning._shuffle_and_split_datasets(
+        0, x_nom[:n_test], y_nom[:n_test], x_ood[:n_test], y_ood[:n_test], AL_OBSERVED_SHARE)
+    card, unc, nc_card, sa_card, card_s = al_selections(params, datasets, x_tr[:n_train], k, dev)
+    cpu, unc_cpu, nc_cpu, sa_cpu, cpu_s = al_selections(params, datasets, x_tr[:n_train], k,
+                                                        torch.device("cpu"))
+    if list(card) != list(cpu):
+        raise AssertionError("AL selections: card and CPU built other selections")
+    moved, breaches = {}, []
+    for key, rows in card.items():
+        metric, split = key
+        out = set(np.asarray(rows).tolist()) - set(np.asarray(cpu[key]).tolist())
+        moved[f"{metric}:{split}"] = len(out)
+        if not out or metric == "VR":
+            continue
+        out |= set(np.asarray(cpu[key]).tolist()) - set(np.asarray(rows).tolist())
+        base = metric[:-len("-cam")] if metric.endswith("-cam") else metric
+        if metric == eval_active_learning.RANDOM_SPLIT:
+            breaches.append(f"{key}: the random baseline moved")
+        elif base in UNCERTAINTIES:
+            gap = float(_gaps_to_edge(unc_cpu[key], out, k).max())
+            if gap > AL_UNCERTAINTY_ATOL:
+                breaches.append(f"{key}: rows moved {gap} from the edge")
+        elif base in NC_METRICS:
+            diff = np.abs(nc_card[base, split].astype(np.int64)
+                          - nc_cpu[base, split].astype(np.int64))
+            if not diff.any() or diff.max() > 2 or (diff > 0).mean() > 0.01:
+                breaches.append(f"{key}: rows moved, scores apart by {int(diff.max())} "
+                                f"on {int((diff > 0).sum())} rows")
+        elif metric.endswith("-cam"):
+            if len(out) / 2 > SA_ORDER_CAP * k:
+                breaches.append(f"{key}: {len(out) // 2} of {k} SC-CAM rows moved")
+        else:
+            values = sa_cpu[key]
+            edge = np.sort(values)[-k]
+            gap = float(_gaps_to_edge(values, out, k).max())
+            if not gap <= SA_RTOL * abs(edge):
+                breaches.append(f"{key}: rows moved {gap} from the edge {edge}")
+    counted = {
+        "vr": sum(v for key, v in moved.items() if key.startswith("VR:")),
+        "coverage": sum(v for key, v in moved.items() if key.split(":")[0].split("-")[0]
+                        in NC_METRICS),
+        "uncertainty": sum(v for key, v in moved.items() if key.split(":")[0] in UNCERTAINTIES),
+        "sa": sum(v for key, v in moved.items()
+                  if key.split(":")[0].replace("-cam", "") in AL_CHECK_SA),
+    }
+    report = {"rows": [n_train, n_test, k], "sa_variants": AL_CHECK_SA, "moved_by_kind": counted,
+              "moved": {key: v for key, v in moved.items() if v}, "card_s": card_s,
+              "cpu_s": cpu_s}
+    print(json.dumps({"al_selections_card_vs_cpu": report}))
+    if breaches:
+        raise AssertionError("AL selections card vs CPU: " + "; ".join(breaches))
+    return report
+
+
+def check_collect_activations(tree, data, dev, root: str) -> dict:
+    """``CaseStudy.collect_activations`` of MNIST run 0 (the flax tree
+    ``tree``) on the first ``ACTIVATION_ROWS`` rows of each set, on the card
+    and on the CPU: the same files, dtypes and shapes, labels byte-equal,
+    each tap within ``ACTIVATION_RTOL`` of its largest magnitude."""
+    cut = tuple((x[:ACTIVATION_ROWS], y[:ACTIVATION_ROWS]) for x, y in data)
+    cs = case_study(AL_FAMILY, cut)
+    dumps, seconds = {}, {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        os.environ["TIP_ASSETS"] = os.path.join(root, f"activations_{side}")
+        cs.save_params(0, tree)
+        t0 = time.perf_counter()
+        cs.collect_activations([0], device=device)
+        seconds[side] = time.perf_counter() - t0
+        folder = os.path.join(subdir("activations"), AL_FAMILY, "model_0")
+        dumps[side] = {os.path.relpath(os.path.join(d, n), folder): os.path.join(d, n)
+                       for d, _, names in os.walk(folder) for n in names}
+    if set(dumps["card"]) != set(dumps["cpu"]):
+        raise AssertionError("at_collection: card and CPU wrote other files")
+    badges = -(-ACTIVATION_ROWS // 100)
+    layers = len(PATHS[AL_FAMILY]["model"].all_layers)
+    if len(dumps["card"]) != 3 * badges * (layers + 1):
+        raise AssertionError(f"at_collection: {len(dumps['card'])} files, want "
+                             f"{3 * badges * (layers + 1)}")
+    worst = {}
+    for name, path in dumps["card"].items():
+        a, b = np.load(path), np.load(dumps["cpu"][name])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"at_collection {name}: {a.dtype}{a.shape} on the card, "
+                                 f"{b.dtype}{b.shape} on the CPU")
+        layer = name.split(os.sep)[1]
+        if layer == "labels":
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"at_collection {name}: labels differ")
+            continue
+        rel = float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+        worst[layer] = max(worst.get(layer, 0.0), rel)
+        if rel > ACTIVATION_RTOL:
+            raise AssertionError(f"at_collection {name}: card vs CPU {rel} of the tap's "
+                                 f"largest magnitude > {ACTIVATION_RTOL}")
+    report = {"rows_per_set": ACTIVATION_ROWS, "files": len(dumps["card"]),
+              "relative_err_by_layer": worst, "card_s": seconds["card"], "cpu_s": seconds["cpu"]}
+    print(json.dumps({"at_collection": report}))
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1304,9 +1596,11 @@ def main() -> int:
     try:
         os.environ["TIP_ASSETS"] = os.path.join(root, "train")
         training, params = {}, {}
+        trees = {}
         for family in PATHS:
             cs, training[family] = train_family(family, data[family], dev)
-            params[family] = params_from_jax(cs.load_params(0))
+            trees[family] = cs.load_params(0)
+            params[family] = params_from_jax(trees[family])
         classes = {family: predicted_classes(family, params[family], data[family][0][0], dev)
                    for family in PATHS}
 
@@ -1329,11 +1623,15 @@ def main() -> int:
 
         for family in PATHS:
             paths[family] = run_path(family, params[family], data[family], dev, root)
+        active = run_active_learning(data[AL_FAMILY], dev, root)
+        al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev)
+        activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"train_s": {f: t["train_s"] for f, t in training.items()},
                       "paths_s": {f: p["slice_s"] for f, p in paths.items()},
-                      "total_s": sum(p["slice_s"] for p in paths.values())}))
+                      "total_s": sum(p["slice_s"] for p in paths.values()),
+                      "active_learning_s": active["seconds"]}))
 
     def launches_by_path(name):
         return {f: p["launches"][name] for f, p in paths.items() if name in PATHS[f]["kernels"]}
@@ -1347,14 +1645,19 @@ def main() -> int:
             k["launches"] = sum(launches_by_path(k["name"]).values())
             if k["name"] == "flash_attention_fwd":
                 k["training_launches"] = train_launches[k["name"]]
-    kernels.insert(1, dsa_nearest_entry(dsa_by_path, launches_by_path("dsa_nearest")))
+        if k["name"] in PATHS[AL_FAMILY]["kernels"]:
+            k["al_launches"] = active["launches"][k["name"]]
+    b2 = dsa_nearest_entry(dsa_by_path, launches_by_path("dsa_nearest"))
+    b2["al_launches"] = active["launches"]["dsa_nearest"]
+    kernels.insert(1, b2)
     print(json.dumps({"kernels": kernels}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"gpu": smi, "build_s": build_s, "kernels": kernels, "training": training,
                        "imdb_gradients": gradients, "wide_heads": wide, "classes": classes,
-                       "paths": paths}, f, indent=1)
+                       "paths": paths, "active_learning": active, "al_selections": al_check,
+                       "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,11 @@ Counterpart of the JAX package's ``casestudies/base.py`` ``CaseStudy``:
 - ``train`` trains the missing runs through one ``train_ensemble`` (one
   card, members in turn);
 - ``run_prio_eval`` runs ``engine/eval_prioritization.evaluate`` per run
-  (the per-phase route: no worker processes, no grouped chain yet).
+  (the per-phase route: no worker processes, no grouped chain yet);
+- ``run_active_learning_eval`` runs ``engine/eval_active_learning.evaluate``
+  per run, its retrains through ``parallel/al_ensemble.py``;
+- ``collect_activations`` dumps every tap (``engine/activation_persistor.py``,
+  the ``at_collection`` phase).
 
 The paper registry (mnist, fmnist, cifar10, imdb) needs ``data/loaders.py``
 and the corruption generators, which the port does not have yet;
@@ -28,8 +32,13 @@ import numpy as np
 from simple_tip_tpu_torch.bridge import params_from_jax, params_to_jax
 from simple_tip_tpu_torch.config import subdir
 from simple_tip_tpu_torch.device import DeviceLike, resolve
-from simple_tip_tpu_torch.engine import eval_prioritization
-from simple_tip_tpu_torch.models.train import TrainConfig
+from simple_tip_tpu_torch.engine import (
+    activation_persistor,
+    eval_active_learning,
+    eval_prioritization,
+)
+from simple_tip_tpu_torch.models.train import TrainConfig, accuracy
+from simple_tip_tpu_torch.parallel.al_ensemble import al_retrain_ensemble
 from simple_tip_tpu_torch.parallel.ensemble import train_ensemble, unstack
 from simple_tip_tpu_torch.utils import checkpoint
 
@@ -50,6 +59,8 @@ class CaseStudySpec:
     sa_activation_layers: Tuple
     prediction_badge_size: int
     num_classes: int
+    al_observed_share: float = 0.5
+    al_num_selected: int = 1000
     dsa_badge_size: Optional[int] = None
 
 
@@ -67,7 +78,7 @@ def _same_layout(tree: Dict, template: Dict, path: str = "") -> None:
 
 
 class CaseStudy:
-    """Runs training and ``test_prio`` for one case study."""
+    """Runs training and the experiment phases for one case study."""
 
     def __init__(self, spec: CaseStudySpec):
         self.spec = spec
@@ -142,6 +153,70 @@ class CaseStudy:
                 device=device,
             )
         return phases
+
+    def run_active_learning_eval(
+        self, model_ids: List[int], device: DeviceLike = None
+    ) -> Dict[int, eval_active_learning.ActiveLearningRun]:
+        """Run the active-learning phase for the requested runs; returns
+        each run's step seconds and retrain epochs
+        (``eval_active_learning.evaluate``). Each run's ~80 retrains train
+        through ``al_retrain_ensemble``: one copy of the training set on the
+        device, each retrain's rows gathered there."""
+        device = resolve(device)
+        (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader()
+        eye = np.eye(self.spec.num_classes, dtype=np.float32)
+        train_y_onehot = eye[np.asarray(y_train).astype(np.int64).flatten()]
+
+        def batch_training_process(sels):
+            prepared = [(x, eye[y.astype(np.int64)], seed) for (x, y, seed) in sels]
+            trained = al_retrain_ensemble(self.model_def, self.spec.train_cfg, x_train,
+                                          train_y_onehot, prepared, device)
+            return [(self.model_def, params_from_jax(tree), epochs) for tree, epochs in trained]
+
+        def accuracy_fn(model_def, params, x, labels):
+            return accuracy(model_def, params, x, labels, device)
+
+        runs = {}
+        for model_id in model_ids:
+            params = params_from_jax(self.load_params(model_id))
+            logger.info("[%s] active-learning eval for run %d", self.spec.name, model_id)
+            runs[model_id] = eval_active_learning.evaluate(
+                model_id=model_id,
+                case_study=self.spec.name,
+                model_def=self.model_def,
+                params=params,
+                train_x=x_train,
+                nominal_test_x=x_test,
+                nominal_test_labels=y_test,
+                ood_test_x=ood_x,
+                ood_test_labels=ood_y,
+                nc_activation_layers=list(self.spec.nc_activation_layers),
+                sa_activation_layers=list(self.spec.sa_activation_layers),
+                batch_training_process=batch_training_process,
+                observed_share=self.spec.al_observed_share,
+                num_selected=self.spec.al_num_selected,
+                accuracy_fn=accuracy_fn,
+                dsa_badge_size=self.spec.dsa_badge_size,
+                batch_size=self.spec.prediction_badge_size,
+                device=device,
+            )
+        return runs
+
+    def collect_activations(self, model_ids: List[int], device: DeviceLike = None) -> None:
+        """Dump every tap of the requested runs (the at_collection phase)."""
+        device = resolve(device)
+        (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader()
+        for model_id in model_ids:
+            activation_persistor.persist(
+                model_def=self.model_def,
+                params=params_from_jax(self.load_params(model_id)),
+                case_study=self.spec.name,
+                model_id=model_id,
+                train_set=(x_train, y_train),
+                test_nominal=(x_test, y_test),
+                test_corrupted=(ood_x, ood_y),
+                device=device,
+            )
 
 
 def get_case_study(name: str) -> CaseStudy:

@@ -48,6 +48,7 @@ MINI_CASE_STUDIES = {
         sa_activation_layers=(3,),
         prediction_badge_size=128,
         num_classes=10,
+        al_num_selected=48,
     ),
     "mini-cifar10": CaseStudySpec(
         name="mini-cifar10",
@@ -58,6 +59,7 @@ MINI_CASE_STUDIES = {
         sa_activation_layers=(3,),
         prediction_badge_size=128,
         num_classes=10,
+        al_num_selected=48,
     ),
 }
 

@@ -126,10 +126,16 @@ class Trainer:
         """Train a fresh model (keras-fit semantics), returning its flax
         tree. Per epoch, ``{"epoch", "steps", "seconds", "first_loss",
         "mean_loss"}`` is appended to ``history`` if one is given."""
-        cfg = self.cfg
-        n_train = training_rows(x.shape[0], cfg.validation_split)
+        n_train = training_rows(x.shape[0], self.cfg.validation_split)
         xs = to_device(x[:n_train], self.device)
         ys = torch.as_tensor(np.asarray(y_onehot[:n_train], np.float32)).to(self.device)
+        return self.fit(xs, ys, seed, history)
+
+    def fit(self, xs: torch.Tensor, ys: torch.Tensor, seed: int,
+            history: Optional[List[Dict]] = None) -> Dict:
+        """``train`` on training rows already on the device (the AL
+        ensemble gathers them there)."""
+        cfg = self.cfg
         net = self.fresh(seed)
         opt = adam_like_keras(net.parameters(), cfg.learning_rate)
         generator = torch.Generator(device=self.device).manual_seed(seed + EPOCH_SEED_OFFSET)
@@ -174,8 +180,19 @@ def evaluate_accuracy(
     device: DeviceLike = None,
 ) -> float:
     """Top-1 accuracy of ``model`` with the flax tree ``params`` on (x, labels)."""
+    return accuracy(model, params_from_jax(params), x, labels, device)
+
+
+def accuracy(
+    model: nn.Module,
+    bridged: Dict,
+    x: np.ndarray,
+    labels: np.ndarray,
+    device: DeviceLike = None,
+) -> float:
+    """``evaluate_accuracy`` with the bridge's output ``bridged``
+    (``{"module", "fused"}``) in place of the flax tree."""
     dev = resolve(device)
-    bridged = params_from_jax(params)
     net = copy.deepcopy(model).to(dev).eval()
     net.load_state_dict(bridged["module"])
     fused = {k: v.to(dev) for k, v in bridged["fused"].items()}

@@ -1,8 +1,14 @@
 """The approach vocabulary of the result tables (own copy of the JAX
 package's ``plotters/utils.py`` canon): all 39 tested approaches in the
-published row order, and the category of each."""
+published row order, and the category of each; and the reader of the
+artifact bus's pickles by file-name pattern."""
 
-from typing import Optional, Tuple
+import pickle
+import re
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+from simple_tip_tpu_torch.config import output_folder
 
 _NC_GRID = (
     ("NAC", "0.75"),
@@ -49,3 +55,16 @@ def category(approach: str) -> Optional[str]:
 def _row(approach: str) -> Tuple[Optional[str], str]:
     """(category, approach): the two-level row key of the tables."""
     return category(approach), approach
+
+
+def load_all_for_regex(research_question: str, regex: re.Pattern) -> List:
+    """The unpickled contents of every artifact in the bus subfolder
+    ``research_question`` whose name ``regex`` matches at its start, sorted
+    by path, as the JAX package's reader returns them (it also memoizes
+    them and loads ``.npy`` files as arrays; no reader of the port needs
+    either)."""
+    folder = Path(output_folder()) / research_question
+    if not folder.is_dir():
+        return []
+    hits = sorted(p for p in folder.rglob("*") if p.is_file() and regex.match(p.name, pos=0))
+    return [pickle.loads(p.read_bytes()) for p in hits]
