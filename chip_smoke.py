@@ -1,8 +1,10 @@
-"""Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels, holds
-each against its plain PyTorch version, trains the three model families at
-full width through the port's ``CaseStudy.train``, and runs the
-``test_prio`` slice end to end on the trained checkpoints at full dataset
-sizes.
+"""Chip smoke test of the PyTorch/H100 port: builds the CUDA kernels, loads
+the paper's four studies through the port's registry and loaders
+(generating their corrupted sets on the card), holds the corruptors and
+each kernel against the CPU or their plain PyTorch versions, trains the
+three model families at full width, and runs ``test_prio`` and MNIST's
+active learning end to end through the port's command line
+(``simple_tip_tpu_torch.cli.main``) at full dataset sizes.
 
     python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
 
@@ -11,9 +13,38 @@ Needs one CUDA card; exits non-zero without one (and without the
 
 1. build the six kernel sources with ``nvcc`` for sm_90a (one process per
    source, all started together; build seconds printed);
-2. training (``casestudies.base.CaseStudy.train`` in a temp ``TIP_ASSETS``):
-   each family at full width on its full training set (MNIST 60,000,
-   CIFAR-10 50,000, IMDB 25,000) with the JAX registry's train configs
+2. data, in a temp ``TIP_DATA_DIR``: ``mnist.npz`` and ``fmnist.npz``
+   (60,000 / 10,000) and ``cifar10.npz`` (50,000 / 10,000), uint8 from
+   ``data/synthetic.py`` at ``--seed`` with no corruption cache (state
+   ``nominal-only``), and IMDB's five token caches at 25,000 / 25,000 /
+   25,000 (state ``real``); each study loaded through
+   ``get_case_study(name).spec.loader(device=card)``, which generates the
+   MNIST-C, fmnist-C and CIFAR-10-C style sets of 10,000 images on the card
+   (seconds printed). Checks: each cache's shape, dtype and range, its
+   labels equal to ``y_test`` in the generator's order (so the per-kind
+   counts of ``_allocate``), two rows of each kind recomputed one at a time
+   within one uint8 level, the OOD set (20,000 / 20,000 / 20,000 / 50,000
+   rows) the nominal and corrupted sets mixed, the state ``real`` after,
+   and every array read back byte-equal after the loaders'
+   ``cache_clear()``;
+3. the image corruptor on the card against the CPU: each of the 27 kinds at
+   each severity on 32 images of each shape (28x28x1, 32x32x3) at the same
+   global indices: the words of every draw slot byte-equal, the draws within
+   1e-6, the outputs within 1e-5 but for canny, spatter and snow, where the
+   pixels apart are counted and capped at 0.1%;
+4. the text side: 2,000 English-like texts (``synthetic.english_like_texts``
+   over the bundled thesaurus's words) into a ``TextCorruptor`` of 4,000
+   words built on the card and one built on the CPU: distance matrices
+   byte-equal (and a 1,000-word subset's matrix computed on the CPU, and
+   200 pairs against the host ``levenshtein``), ``lev_matrix`` timed at
+   4,000 words, ``corrupt(texts, 0.5, 0)`` string-equal, and
+   ``build_imdb_caches`` on the texts (shapes and dtypes);
+5. training (``casestudies.base.CaseStudy.train`` in a temp ``TIP_ASSETS``
+   on the registry's specs, each put back into the registry with its
+   epochs cut, so that the command line below reads their checkpoints;
+   cuDNN's algorithms deterministic, so that the weights repeat between
+   runs): each family at full width on its loader's training set (MNIST 60,000,
+   CIFAR-10 50,000, IMDB 25,000) with the registry's train configs
    (batch 128 / 32 / 32, lr 1e-3, validation split 0.1), **epochs cut to 1**
    (the registry trains 15 / 20 / 10); MNIST trains runs 0 and 1 (a
    two-member ``train_ensemble``), CIFAR-10 and IMDB run 0. Per run: epoch
@@ -22,7 +53,7 @@ Needs one CUDA card; exits non-zero without one (and without the
    the first step's, accuracy clears its floor (``ACCURACY_FLOOR``), each
    checkpoint reads back byte-equal; the IMDB epoch must launch B4, B5 and
    B6 once a step (704 steps);
-3. per kernel, at its main path's shapes and on the trained weights: max
+6. per kernel, at its main path's shapes and on the trained weights: max
    error against the plain version, and the times of the kernel, the plain
    version and one library call used as a yardstick only:
    - B1 fused MNIST forward: max |dp| <= 1e-5 over 10,000 images (library:
@@ -62,12 +93,13 @@ Needs one CUDA card; exits non-zero without one (and without the
      within rtol 2e-4 / atol 2e-5 (atol cut per leaf to 2e-4 of its largest
      |gradient| plus the f32 rounding floor), with non-zero q/k/v kernel
      gradients;
-4. per path (MNIST 60,000 / 10,000 / 10,000; CIFAR-10 50,000 / 10,000 /
-   10,000; IMDB 25,000 / 25,000 / 25,000 with ``dsa_badge_size=500``), the
-   slice (``engine.eval_prioritization.evaluate``, all 39 approaches with
-   the five SA variants) on run 0's trained checkpoint
-   (``CaseStudy.load_params`` through the bridge) with every launch counter
-   set to 0 just before and read just after: each kernel of the path must
+7. per path (the loaders' data: MNIST 60,000 / 10,000 / 20,000; CIFAR-10
+   50,000 / 10,000 / 20,000; IMDB 25,000 / 25,000 / 50,000 with
+   ``dsa_badge_size=500``), ``cli.main(["--phase", "test_prio",
+   "--case-study", name, "--runs", "0"])`` in-process (all 39 approaches
+   with the five SA variants) on run 0's trained checkpoint with every
+   launch counter set to 0 just before and read just after: each kernel of
+   the path must
    have launched; every artifact is checked for the JAX package's name,
    dtype and shape, every CAM order for being a permutation, SA scores for
    NaN (and +inf outside dsa and pc-lsa); APFD of deep_gini, dsa and
@@ -75,7 +107,7 @@ Needs one CUDA card; exits non-zero without one (and without the
    both datasets and its +inf count, pc-mmdsa's chosen k, and the family's
    row of the APFD table (``plotters/eval_apfd_table``: all 39 approaches,
    nominal and OOD, with their reported times);
-5. per path, the slice with DSA on a small subset on the card and on the
+8. per path, the slice with DSA on a small subset on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
    same traces (``SA_CHECK``: MNIST 20,000 training rows, CIFAR-10 25,000,
@@ -91,9 +123,10 @@ Needs one CUDA card; exits non-zero without one (and without the
    ``reg_covar`` rung, the score gap and SC-CAM moves printed, and the rows
    that move in or out of its top-k and SC-CAM first-k at k = 20% of the
    class's rows, the share that active learning selects);
-6. MNIST's active-learning phase (``CaseStudy.run_active_learning_eval``
-   on run 0's checkpoint, the launch counters set to 0 just before and
-   read just after: B1 and B2 must launch) at full width with the JAX
+9. MNIST's active-learning phase (``cli.main(["--phase",
+   "active_learning", ...])`` on run 0's checkpoint, the registry's spec
+   cut as below, the launch counters set to 0 just before and read just
+   after: B1 and B2 must launch) at full width with the JAX
    registry's observed share 0.5 and 1,000 selected rows, its 80 retrains
    through ``parallel/al_ensemble.py``, with two cuts: **retrains run one
    epoch** (the registry trains 15) and **the AL training base is the
@@ -104,7 +137,7 @@ Needs one CUDA card; exits non-zero without one (and without the
    each selection (FP / NC / SA), of all retrains and per retrain, and of
    scoring the retrained models, and MNIST's row of the AL table
    (``plotters/eval_active_learning_table``);
-7. the four selection builders on a small subset (``AL_CHECK``) on the card
+10. the four selection builders on a small subset (``AL_CHECK``) on the card
    and on the CPU, rows moved per selection counted: the random baseline
    equal; an uncertainty's top-k equal but for rows within 1e-5 of its
    edge; a coverage top-k or CAM first-k equal but where the metric's
@@ -114,11 +147,15 @@ Needs one CUDA card; exits non-zero without one (and without the
    counted only (other generators). The SA builder runs dsa, pc-lsa,
    pc-mdsa and pc-mmdsa: pc-mlsa's CPU fit at 1,600 features takes about
    a minute a class, and its known card/CPU gap is counted at full width
-   in phase 5;
-8. ``at_collection`` (``CaseStudy.collect_activations``) of MNIST run 0 on
+   in phase 8;
+11. ``at_collection`` (``CaseStudy.collect_activations``) of MNIST run 0 on
    the first 1,000 rows of each set, on the card and on the CPU: the same
    files, dtypes and shapes, labels byte-equal, each tap within 1e-5 of its
-   largest magnitude.
+   largest magnitude;
+12. ``cli.main`` ``--phase evaluation`` (``--eval test_prio`` and
+   ``active_learning``) and ``--phase check`` over the paths' assets: both
+   tables written, every path's run 0 complete (models, prio artifacts,
+   times; MNIST's AL pickles).
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does each of its products (``UNITS``): 3xTF32
@@ -131,10 +168,11 @@ kernels that ran on the FMAs alone.
 Prints the card's name and power limit, per-run training records, per-path
 seconds, one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 {...}}``. Inputs are made with numpy from ``--seed``: the MNIST, CIFAR-10
-and IMDB stand-ins of ``data/synthetic.py`` (their OOD sets through its
-corruptors), whose ambiguous 8% keep a trained model's nominal faults, and
-so nominal APFD, defined. Weights are the port's own training on them, from
-flax's initializers drawn from the run id.
+and IMDB stand-ins of ``data/synthetic.py`` written as the real datasets'
+files, whose ambiguous 8% keep a trained model's nominal faults, and so
+nominal APFD, defined; the image OOD sets are the loaders' generated
+corruptions. Weights are the port's own training on them, from flax's
+initializers drawn from the run id.
 """
 
 import argparse
@@ -152,12 +190,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from simple_tip_tpu_torch import _build
+from simple_tip_tpu_torch import _build, cli
 from simple_tip_tpu_torch.bridge import params_from_jax
-from simple_tip_tpu_torch.casestudies.base import CaseStudy, CaseStudySpec
+from simple_tip_tpu_torch.casestudies import base
+from simple_tip_tpu_torch.casestudies.base import CaseStudy
 from simple_tip_tpu_torch.config import subdir
-from simple_tip_tpu_torch.data import synthetic
-from simple_tip_tpu_torch.device import resolve
+from simple_tip_tpu_torch.data import image_corruptor, imdb_prep, loaders, synthetic
+from simple_tip_tpu_torch.device import resolve, synchronize
 from simple_tip_tpu_torch.engine import eval_active_learning, eval_prioritization
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.engine.sa_prep import SharedTrainPrep, VariantFitter
@@ -165,17 +204,19 @@ from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS, _sc_cam_or
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 from simple_tip_tpu_torch.models.predict import PREDICT_BATCH, predict, to_device
 from simple_tip_tpu_torch.models.train import (
-    TrainConfig,
     categorical_crossentropy,
     evaluate_accuracy,
     training_rows,
 )
 from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
+from simple_tip_tpu_torch.ops.levenshtein import lev_matrix, levenshtein
+from simple_tip_tpu_torch.ops.text_corruptor import TextCorruptor
 from simple_tip_tpu_torch.plotters import eval_active_learning_table, eval_apfd_table, times_collector
 from simple_tip_tpu_torch.plotters.utils import APPROACHES
 from simple_tip_tpu_torch.utils import checkpoint
 
+START = time.perf_counter()  # the command's clock, from the imports on
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # The unit that does each kernel's products, and its rate for them: float32
@@ -222,21 +263,21 @@ MLSA_APFD_GAP = 0.02
 # the training epoch must launch once a step.
 PATHS = {
     "mnist": dict(
-        model=MnistConvNet, sizes=(60_000, 10_000, 10_000), nc=[0, 1, 2, 3], sa=[3],
+        model=MnistConvNet, sizes=(60_000, 10_000, 20_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=128,
         neurons=26 * 26 * 32 + 13 * 13 * 32 + 11 * 11 * 64 + 5 * 5 * 64,
         kernels=("fused_mnist_forward", "dsa_nearest"),
         train_batch=128, runs=[0, 1], classes=10, train_kernels=(),
     ),
     "cifar10": dict(
-        model=Cifar10ConvNet, sizes=(50_000, 10_000, 10_000), nc=[0, 1, 2, 3], sa=[3],
+        model=Cifar10ConvNet, sizes=(50_000, 10_000, 20_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=32,
         neurons=30 * 30 * 32 + 15 * 15 * 32 + 13 * 13 * 64 + 6 * 6 * 64,
         kernels=("fused_cifar10_forward", "dsa_nearest"),
         train_batch=32, runs=[0], classes=10, train_kernels=(),
     ),
     "imdb": dict(
-        model=ImdbTransformer, sizes=(25_000, 25_000, 25_000), nc=[3, 5], sa=[5],
+        model=ImdbTransformer, sizes=(25_000, 25_000, 50_000), nc=[3, 5], sa=[5],
         dsa_badge=500, batch=600, neurons=32 + 20,
         kernels=("flash_attention_fwd", "dsa_nearest"),
         train_batch=32, runs=[0], classes=2,
@@ -262,7 +303,7 @@ AL_RANDOM_FLOOR = 0.7
 # SA_CHECK's, so that MDSA's covariances are not singular), test rows per
 # set (half of them observed), rows selected (20% of the observed, as in the
 # AL phase), and the SA variants (pc-mlsa's CPU fit at 1,600 features takes
-# about a minute a class; its gap is read at full width in phase 5).
+# about a minute a class; its gap is read at full width in phase 8).
 AL_CHECK = (20_000, 500, 50)
 AL_CHECK_SA = ("dsa", "pc-lsa", "pc-mdsa", "pc-mmdsa")
 AL_UNCERTAINTY_ATOL = 1e-5
@@ -270,6 +311,38 @@ AL_UNCERTAINTY_ATOL = 1e-5
 # against CPU) relative to the tap's largest magnitude
 ACTIVATION_ROWS = 1_000
 ACTIVATION_RTOL = 1e-5
+# The data phase's fixtures: the real datasets' splits, uint8 images of
+# data/synthetic.py at --seed plus an offset (fmnist's 1 sets it apart from
+# MNIST's), no corruption cache; the registry's loaders then generate
+# 10,000 corrupted images each on the card with the seed each loader gives
+# it (CORRUPTION_SEEDS). At offset 0 the three paths train and score the
+# arrays that the card-against-CPU SA tolerances were set on; with
+# CIFAR-10's drawn at --seed + 2, its pc-mdsa (2,500 rows a class at 2,304
+# features: nearly singular covariances) came 1.4e-2 apart in one of two
+# runs.
+IMAGE_FIXTURES = {"mnist": (60_000, 10_000, (28, 28, 1), 0),
+                  "fmnist": (60_000, 10_000, (28, 28, 1), 1),
+                  "cifar10": (50_000, 10_000, (32, 32, 3), 0)}
+IMDB_FIXTURE = (25_000, 25_000, 0)
+CORRUPTION_SEEDS = {"mnist": 11, "fmnist": 22, "cifar10": 33}
+# Rows per kind recomputed one at a time against the generated cache (within
+# one uint8 level, or CORRUPTOR_ATOL for fmnist's floats).
+ROWS_PER_KIND = 2
+# The corruptor card against CPU: images per (kind, severity) at the global
+# indices CORRUPTOR_INDICES; the draws' words byte-equal, their floats within
+# CORRUPTOR_DRAW_ATOL, the outputs within CORRUPTOR_ATOL but for the kinds
+# that threshold floats, where differing pixels are counted and capped at
+# CORRUPTOR_FLIP_CAP of the pixels.
+CORRUPTOR_INDICES = np.arange(100, 132)
+CORRUPTOR_DRAW_ATOL = 1e-6
+CORRUPTOR_ATOL = 1e-5
+CORRUPTOR_FLIP_CAP = 1e-3
+THRESHOLDED_KINDS = ("canny_edges", "spatter", "snow")
+# The text check: English-like texts, the corruptor's dictionary, and the
+# words of the card-against-CPU check of the distance matrix.
+TEXTS = 2_000
+DICTIONARY = 4_000
+LEV_CHECK_WORDS = 1_000
 COUNTERS = {
     "fused_mnist_forward": (fused_forward, "LAUNCHES"),
     "fused_cifar10_forward": (fused_forward, "CIFAR_LAUNCHES"),
@@ -289,17 +362,305 @@ def read_counters() -> dict:
     return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
-def make_data(family: str, seed: int):
-    """(train x, y), (nominal x, y), (ood x, y) for one path at its sizes."""
-    n_train, n_test, n_ood = PATHS[family]["sizes"]
-    if family == "imdb":
-        train, test = synthetic.token_classification(seed, n_train, n_test)
-        ood = synthetic.corrupt_tokens(test[0][:n_ood], seed + 1)
-    else:
-        shape = (28, 28, 1) if family == "mnist" else (32, 32, 3)
-        train, test = synthetic.image_classification(seed, n_train, n_test, shape)
-        ood = synthetic.corrupt_images(test[0][:n_ood], seed + 1)
-    return train, test, (ood, test[1][:n_ood])
+def write_fixtures(folder: str, seed: int) -> dict:
+    """The data phase's inputs under ``folder`` (``TIP_DATA_DIR``): the three
+    image archives, uint8 as the real ones (no corruption cache), and
+    IMDB's five token caches. Returns each image set's nominal test split."""
+    os.makedirs(os.path.join(folder, "imdb"), exist_ok=True)
+    nominal = {}
+    for name, (n_train, n_test, shape, offset) in IMAGE_FIXTURES.items():
+        (x_tr, y_tr), (x_te, y_te) = synthetic.image_classification(seed + offset, n_train,
+                                                                    n_test, shape)
+
+        def to_uint8(x):
+            x = np.round(x * 255).astype(np.uint8)
+            return x[..., 0] if x.shape[-1] == 1 else x
+
+        np.savez(os.path.join(folder, f"{name}.npz"), x_train=to_uint8(x_tr), y_train=y_tr,
+                 x_test=to_uint8(x_te), y_test=y_te)
+        nominal[name] = (x_te, y_te)
+    n_train, n_test, offset = IMDB_FIXTURE
+    (x_tr, y_tr), (x_te, y_te) = synthetic.token_classification(seed + offset, n_train, n_test)
+    arrays = {"x_train": x_tr, "y_train": y_tr, "x_test": x_te, "y_test": y_te,
+              "x_corrupted": synthetic.corrupt_tokens(x_te, seed + offset + 1)}
+    for key, value in arrays.items():
+        np.save(os.path.join(folder, "imdb", f"{key}.npy"), value)
+    return nominal
+
+
+def clear_loaders() -> None:
+    for fn in (loaders.load_mnist, loaders.load_fmnist, loaders.load_cifar10, loaders.load_imdb):
+        fn.cache_clear()
+
+
+def expected_corruption(name: str, y_test: np.ndarray):
+    """The generator's numpy draws for ``name``: per output row its kind,
+    source row and severity, and the labels."""
+    kinds = (image_corruptor.CIFAR10_C_KINDS if name == "cifar10"
+             else image_corruptor.MNIST_C_KINDS)
+    rng = np.random.default_rng(CORRUPTION_SEEDS[name])
+    allocation = image_corruptor._allocate(rng, len(y_test), len(y_test), len(kinds))
+    kind_of, source, severity = [], [], []
+    for kind, idx in zip(kinds, allocation):
+        kind_of += [kind] * len(idx)
+        source.append(idx)
+        severity.append(rng.integers(1, 6, size=len(idx)))
+    perm = rng.permutation(len(y_test))
+    source, severity = np.concatenate(source)[perm], np.concatenate(severity)[perm]
+    counts = {kind: len(idx) for kind, idx in zip(kinds, allocation)}
+    return np.asarray(kind_of)[perm], source, severity, y_test[source], counts
+
+
+def check_generated(name: str, triple, nominal, folder: str, dev) -> dict:
+    """A generated corruption cache against the generator's draws: shape,
+    dtype, range, per-kind counts and labels; ``ROWS_PER_KIND`` rows of each
+    kind recomputed one at a time on the card; the OOD mix."""
+    x_te, y_te = nominal
+    images = np.load(os.path.join(folder, f"{name}_c_images.npy"))
+    labels = np.load(os.path.join(folder, f"{name}_c_labels.npy"))
+    kind_of, source, severity, want_labels, counts = expected_corruption(name, y_te)
+    uint8 = name != "fmnist"
+    want_dtype = np.uint8 if uint8 else np.float32
+    if images.dtype != want_dtype or images.shape != x_te.shape:
+        raise AssertionError(f"{name}: cache {images.dtype}{images.shape}, want "
+                             f"{np.dtype(want_dtype)}{x_te.shape}")
+    if not uint8 and not (images.min() >= 0 and images.max() <= 1):
+        raise AssertionError(f"{name}: cached floats outside [0, 1]")
+    if labels.dtype != np.int64 or not np.array_equal(labels, want_labels):
+        raise AssertionError(f"{name}: cached labels are not y_test in the generator's order")
+    n, k = len(y_te), len(counts)
+    if list(counts.values()) != [n // k + (i < n % k) for i in range(k)]:
+        raise AssertionError(f"{name}: per-kind counts {counts}")
+    worst = 0.0
+    for kind in counts:
+        for row in np.flatnonzero(kind_of == kind)[:ROWS_PER_KIND]:
+            one = image_corruptor.corrupt_images(
+                x_te[[source[row]]], kind, int(severity[row]), seed=CORRUPTION_SEEDS[name],
+                global_indices=[source[row]], device=dev)[0]
+            if uint8:
+                err = float(np.abs(np.round(one * 255).astype(np.int64)
+                                   - images[row].astype(np.int64)).max())
+                limit = 1.0
+            else:
+                err, limit = float(np.abs(one - images[row]).max()), CORRUPTOR_ATOL
+            worst = max(worst, err)
+            if err > limit:
+                raise AssertionError(f"{name} row {row} ({kind}, severity {severity[row]}): "
+                                     f"{err} from its recomputation")
+    (_, _), (x_nom, y_nom), (ood_x, ood_y) = triple
+    corrupted = images.astype(np.float32) / 255.0 if uint8 else images
+    want_x, want_y = loaders._ood_mix(x_nom, y_nom, corrupted, labels, seed=0)
+    if not (np.array_equal(ood_x, want_x) and np.array_equal(ood_y, want_y)):
+        raise AssertionError(f"{name}: the OOD set is not the nominal and corrupted sets mixed")
+    return {"kinds": counts, "recomputed_rows": ROWS_PER_KIND * len(counts),
+            "recomputed_max_err": worst}
+
+
+def data_phase(folder: str, seed: int, dev) -> tuple:
+    """Fixtures into ``folder``, then every study's data through the
+    registry's loader: the corrupted sets generated on the card (seconds
+    printed) and checked, the presence states before and after, and the
+    caches read back byte-equal. Returns ({study: triple}, the record)."""
+    os.environ["TIP_DATA_DIR"] = folder
+    clear_loaders()
+    t0 = time.perf_counter()
+    nominal = write_fixtures(folder, seed)
+    record = {"fixtures_s": time.perf_counter() - t0}
+    data = {}
+    for name in ("mnist", "fmnist", "cifar10", "imdb"):
+        before = loaders.dataset_presence(name)
+        if before != ("real" if name == "imdb" else "nominal-only"):
+            raise AssertionError(f"{name}: presence {before} before loading")
+        t0 = time.perf_counter()
+        data[name] = base.get_case_study(name).spec.loader(device=dev)
+        synchronize(dev)
+        seconds = time.perf_counter() - t0
+        after = loaders.dataset_presence(name)
+        if after != "real":
+            raise AssertionError(f"{name}: presence {after} after loading")
+        rows = [len(pair[1]) for pair in data[name]]
+        rec = {"state_before": before, "state_after": after, "load_s": seconds, "rows": rows}
+        if name in PATHS and rows != list(PATHS[name]["sizes"]):
+            raise AssertionError(f"{name}: rows {rows}, want {PATHS[name]['sizes']}")
+        if name != "imdb":
+            rec.update(check_generated(name, data[name], nominal[name], folder, dev))
+        record[name] = rec
+    clear_loaders()
+    for name, triple in data.items():
+        again = base.get_case_study(name).spec.loader(device=dev)
+        for (x, y), (x2, y2) in zip(triple, again):
+            if x.tobytes() != x2.tobytes() or y.tobytes() != y2.tobytes():
+                raise AssertionError(f"{name}: the cached data does not read back byte-equal")
+    print(json.dumps({"data": record}))
+    return data, record
+
+
+def _draw_close(kind: str, name: str, dist: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    if dist in ("randint", "bernoulli"):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{kind} draw {name}: card and CPU differ")
+        return 0.0
+    err = float((a.cpu().double() - b.double()).abs().max())
+    if err > CORRUPTOR_DRAW_ATOL:
+        raise AssertionError(f"{kind} draw {name}: card vs CPU {err} > {CORRUPTOR_DRAW_ATOL}")
+    return err
+
+
+def check_corruptor(images: dict, seed: int, dev) -> dict:
+    """Every kind at every severity on ``len(CORRUPTOR_INDICES)`` images of
+    each shape at the same global indices, on the card and on the CPU: the
+    words of every draw slot byte-equal, the draws within
+    ``CORRUPTOR_DRAW_ATOL``, the outputs within ``CORRUPTOR_ATOL`` (pixels
+    apart counted and capped for ``THRESHOLDED_KINDS``)."""
+    report, breaches = {}, []
+    idx = torch.from_numpy(CORRUPTOR_INDICES)
+    for shape_name, x in images.items():
+        x_cpu = torch.from_numpy(np.ascontiguousarray(x[: len(CORRUPTOR_INDICES)]))
+        x_card = x_cpu.to(dev)
+        for kind in sorted(image_corruptor.CORRUPTIONS):
+            worst = {"out": 0.0, "draws": 0.0, "apart": 0}
+            for severity in range(1, 6):
+                plan = image_corruptor.draw_plan(kind, severity, tuple(x_cpu.shape[1:]))
+                for slot, (name, dist, shape, _, _) in enumerate(plan):
+                    count = int(np.prod(shape)) if shape else 1
+                    words_card = image_corruptor.random_words(seed, idx.to(dev), slot, count)
+                    words_cpu = image_corruptor.random_words(seed, idx, slot, count)
+                    if not all(torch.equal(a.cpu(), b) for a, b in zip(words_card, words_cpu)):
+                        breaches.append(f"{kind} slot {slot}: words differ")
+                d_card = image_corruptor.draw(kind, severity, seed, CORRUPTOR_INDICES,
+                                              tuple(x_cpu.shape[1:]), dev)
+                d_cpu = image_corruptor.draw(kind, severity, seed, CORRUPTOR_INDICES,
+                                             tuple(x_cpu.shape[1:]), "cpu")
+                for name, dist, *_ in plan:
+                    worst["draws"] = max(worst["draws"], _draw_close(
+                        kind, name, dist, d_card[name], d_cpu[name]))
+                out_card = image_corruptor.apply(kind, severity, x_card, d_card).cpu()
+                out_cpu = image_corruptor.apply(kind, severity, x_cpu, d_cpu)
+                err = (out_card - out_cpu).abs()
+                apart = int((err > CORRUPTOR_ATOL).sum())
+                worst["out"] = max(worst["out"], float(err.max()))
+                worst["apart"] += apart
+                if kind in THRESHOLDED_KINDS:
+                    if apart > CORRUPTOR_FLIP_CAP * err.numel():
+                        breaches.append(f"{shape_name} {kind} {severity}: {apart} pixels apart")
+                elif apart:
+                    breaches.append(f"{shape_name} {kind} {severity}: card vs CPU "
+                                    f"{float(err.max())} > {CORRUPTOR_ATOL}")
+            report[f"{shape_name}:{kind}"] = worst
+    summary = {"images": len(CORRUPTOR_INDICES), "kinds": len(image_corruptor.CORRUPTIONS),
+               "max_out_err": max(v["out"] for v in report.values()),
+               "max_draw_err": max(v["draws"] for v in report.values()),
+               "pixels_apart": {k: v["apart"] for k, v in report.items() if v["apart"]},
+               "by_kind": report}
+    print(json.dumps({"corruptor_card_vs_cpu": {k: v for k, v in summary.items()
+                                                if k != "by_kind"}}))
+    if breaches:
+        raise AssertionError("corruptor card vs CPU: " + "; ".join(breaches))
+    return summary
+
+
+def check_text(seed: int, dev, folder: str) -> dict:
+    """``TEXTS`` English-like texts over the bundled thesaurus's words: the
+    text corruptor built on the card and on the CPU (distance matrices
+    byte-equal, the same matrix of a ``LEV_CHECK_WORDS``-word subset on the
+    CPU, pairs against the host ``levenshtein``), ``corrupt`` string-equal,
+    ``lev_matrix`` timed at ``DICTIONARY`` words, ``build_imdb_caches`` on
+    the texts."""
+    asset = os.path.join(os.path.dirname(image_corruptor.__file__), "assets",
+                         "en_thesaurus.jsonl")
+    with open(asset) as f:
+        base_words = [json.loads(line)["word"] for line in f]
+    texts, labels = synthetic.english_like_texts(seed, TEXTS, base_words=base_words)
+    t0 = time.perf_counter()
+    card = TextCorruptor(texts, cache_dir=None, dictionary_size=DICTIONARY, device=dev)
+    card_build_s = time.perf_counter() - t0
+    words = card.common_words
+    if len(words) != DICTIONARY:
+        raise AssertionError(f"text: {len(words)} dictionary words, want {DICTIONARY}")
+    synchronize(dev)
+    t0 = time.perf_counter()
+    matrix = lev_matrix(words, dev)
+    lev_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    sub = np.sort(rng.choice(len(words), LEV_CHECK_WORDS, replace=False))
+    t0 = time.perf_counter()
+    sub_cpu = lev_matrix([words[i] for i in sub], "cpu")
+    lev_cpu_s = time.perf_counter() - t0
+    pairs = rng.integers(0, len(words), size=(200, 2))
+    if (matrix.tobytes() != card.lev_dist.tobytes()
+            or matrix[np.ix_(sub, sub)].tobytes() != sub_cpu.tobytes()
+            or any(matrix[i, j] != min(levenshtein(words[i], words[j]), 255) for i, j in pairs)):
+        raise AssertionError("text: the card's distance matrix differs from the CPU's")
+    t0 = time.perf_counter()
+    cpu = TextCorruptor(texts, cache_dir=None, dictionary_size=DICTIONARY, device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    if cpu.lev_dist.tobytes() != card.lev_dist.tobytes():
+        raise AssertionError("text: the CPU's full distance matrix differs from the card's")
+    t0 = time.perf_counter()
+    got = card.corrupt(texts, severity=0.5, seed=0)
+    corrupt_s = time.perf_counter() - t0
+    if got != cpu.corrupt(texts, severity=0.5, seed=0):
+        raise AssertionError("text: corrupt differs between the card's and the CPU's corruptor")
+    changed = sum(a != b for a, b in zip(got, texts))
+    half = TEXTS // 2
+    out = os.path.join(folder, "imdb_caches")
+    t0 = time.perf_counter()
+    imdb_prep.build_imdb_caches(texts[:half], labels[:half], texts[half:], labels[half:], out,
+                                device=dev)
+    caches_s = time.perf_counter() - t0
+    for name, dtype, shape in (("x_train", np.int32, (half, 100)), ("y_train", np.int64, (half,)),
+                               ("x_test", np.int32, (half, 100)), ("y_test", np.int64, (half,)),
+                               ("x_corrupted", np.int32, (half, 100))):
+        a = np.load(os.path.join(out, f"{name}.npy"))
+        if a.dtype != dtype or a.shape != shape:
+            raise AssertionError(f"text: {name} is {a.dtype}{a.shape}, want "
+                                 f"{np.dtype(dtype)}{shape}")
+    record = {"texts": TEXTS, "dictionary": DICTIONARY, "longest_word_bytes":
+              max(len(w.encode()) for w in words), "lev_matrix_s": lev_s,
+              "card_build_s": card_build_s, "cpu_build_s": cpu_build_s,
+              "lev_cpu_s_at_check_words": lev_cpu_s, "check_words": LEV_CHECK_WORDS,
+              "corrupt_s": corrupt_s, "texts_changed": changed,
+              "thesaurus_words": len(card.thesaurus), "imdb_caches_s": caches_s}
+    print(json.dumps({"text": record}))
+    return record
+
+
+def registry_spec(family: str):
+    """The registry's spec of ``family`` with its training cut to one
+    epoch (its batch size, learning rate and validation split kept)."""
+    spec = base.CASE_STUDIES[family]
+    cfg = PATHS[family]
+    if (list(spec.nc_activation_layers), list(spec.sa_activation_layers),
+            spec.prediction_badge_size, spec.dsa_badge_size, spec.train_cfg.batch_size) != (
+            cfg["nc"], cfg["sa"], cfg["batch"], cfg["dsa_badge"], cfg["train_batch"]):
+        raise AssertionError(f"{family}: PATHS differs from the registry")
+    return dataclasses.replace(spec, train_cfg=dataclasses.replace(spec.train_cfg, epochs=1))
+
+
+def device_args(dev) -> tuple:
+    """The command line's device flags: none on the card (its default),
+    ``--device cpu`` when rehearsing on the CPU."""
+    return ("--device", "cpu") if dev.type == "cpu" else ()
+
+
+def run_cli(*argv):
+    """``cli.main`` in-process; raises unless it exits 0. Returns what the
+    phase returned (``cli.dispatch_phase``'s value), if it ran one."""
+    out = {}
+    dispatch = cli.dispatch_phase
+
+    def recording(*args, **kwargs):
+        out["result"] = dispatch(*args, **kwargs)
+        return out["result"]
+
+    cli.dispatch_phase = recording
+    try:
+        code = cli.main(list(argv))
+    finally:
+        cli.dispatch_phase = dispatch
+    if code != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {code}")
+    return out.get("result")
 
 
 def predicted_classes(family: str, params, x: np.ndarray, dev) -> list:
@@ -314,17 +675,9 @@ def predicted_classes(family: str, params, x: np.ndarray, dev) -> list:
 
 
 def case_study(family: str, data) -> CaseStudy:
-    """The family's case study over this run's data, with the JAX
-    registry's train config at one epoch."""
-    cfg = PATHS[family]
-    return CaseStudy(CaseStudySpec(
-        name=family, model_factory=cfg["model"], loader=lambda: data,
-        train_cfg=TrainConfig(batch_size=cfg["train_batch"], epochs=1, learning_rate=1e-3,
-                              validation_split=0.1),
-        nc_activation_layers=tuple(cfg["nc"]), sa_activation_layers=tuple(cfg["sa"]),
-        prediction_badge_size=cfg["batch"], num_classes=cfg["classes"],
-        dsa_badge_size=cfg["dsa_badge"],
-    ))
+    """The family's one-epoch registry study over ``data`` instead of its
+    loader's."""
+    return CaseStudy(dataclasses.replace(registry_spec(family), loader=lambda device=None: data))
 
 
 def train_family(family: str, data, dev) -> tuple:
@@ -332,7 +685,7 @@ def train_family(family: str, data, dev) -> tuple:
     read around it; check losses, accuracies and checkpoints. Returns (the
     case study, the record)."""
     cfg = PATHS[family]
-    cs = case_study(family, data)
+    cs = CaseStudy(registry_spec(family))
     zero_counters()
     t0 = time.perf_counter()
     histories = cs.train(cfg["runs"], device=dev)
@@ -999,19 +1352,20 @@ def expected_artifacts(family: str, n: int, sa_names=SA_NAMES):
     return out
 
 
-def read_artifacts(family: str, n: int, sa_names=SA_NAMES):
-    """Load and check every artifact and time record of model 0: SA scores
-    hold no NaN, and only dsa's and pc-lsa's may hold +inf (no other-class
-    row; a KDE density that underflows).
+def read_artifacts(family: str, rows: dict, sa_names=SA_NAMES):
+    """Load and check every artifact and time record of model 0 (``rows``
+    per dataset): SA scores hold no NaN, and only dsa's and pc-lsa's may
+    hold +inf (no other-class row; a KDE density that underflows).
 
     Returns ``({(ds, suffix): array}, {ds: {metric: [setup, pred, quant, cam]}})``.
     """
     found, records = {}, {}
-    expected = expected_artifacts(family, n, sa_names)
     metrics = [*UNCERTAINTIES, *NC_METRICS, *sa_names]
     if PATHS[family]["model"].has_dropout:
         metrics.append("VR")
     for ds in ("nominal", "ood"):
+        n = rows[ds]
+        expected = expected_artifacts(family, n, sa_names)
         for suffix, (dtype, shape) in expected.items():
             path = os.path.join(subdir("priorities"), f"{family}_{ds}_0_{suffix}.npy")
             a = np.load(path)
@@ -1025,7 +1379,7 @@ def read_artifacts(family: str, n: int, sa_names=SA_NAMES):
                     and not np.isfinite(a).all()):
                 raise AssertionError(f"{path} has non-finite values")
             found[(ds, suffix)] = a
-        extra = {os.path.basename(p) for p in os.listdir(subdir("priorities"))} - {
+        extra = {p for p in os.listdir(subdir("priorities")) if p.startswith(f"{family}_")} - {
             f"{family}_{d}_0_{s}.npy" for d in ("nominal", "ood")
             for s in expected
         }
@@ -1047,8 +1401,6 @@ def run_slice(family: str, params, data, dev, root: str, sa_names=SA_NAMES):
     (phase seconds, artifacts, time records, {variant: chosen k})."""
     cfg = PATHS[family]
     (x_tr, _), (x_nom, y_nom), (x_ood, y_ood) = data
-    if x_ood.shape[0] != x_nom.shape[0]:
-        raise AssertionError("the checks assume equal nominal and OOD sizes")
     os.environ["TIP_ASSETS"] = root
     phases, chosen_k = eval_prioritization.evaluate(
         model_id=0, case_study=family, model_def=cfg["model"](), params=params,
@@ -1057,28 +1409,33 @@ def run_slice(family: str, params, data, dev, root: str, sa_names=SA_NAMES):
         nc_activation_layers=cfg["nc"], sa_activation_layers=cfg["sa"],
         dsa_badge_size=cfg["dsa_badge"], batch_size=cfg["batch"], device=dev, sa_names=sa_names,
     )
-    return (phases, *read_artifacts(family, x_nom.shape[0], sa_names), chosen_k)
+    rows = {"nominal": x_nom.shape[0], "ood": x_ood.shape[0]}
+    return (phases, *read_artifacts(family, rows, sa_names), chosen_k)
 
 
 def compare_small(family: str, card: dict, cpu: dict) -> dict:
-    """Card against CPU (plain versions) on the small subset."""
-    report = {}
+    """Card against CPU (plain versions) on the small subset. DSA scores
+    apart by more than rtol 1e-4 are returned per dataset under
+    ``dsa_rows_apart`` for ``dsa_ties`` to hold."""
+    report = {"dsa_rows_apart": {}}
     for (ds, suffix), a in card.items():
         b = cpu[(ds, suffix)]
         if suffix == "is_misclassified":
             if not np.array_equal(a, b):
                 raise AssertionError(f"{family} {ds} predictions differ between card and CPU")
         elif suffix.startswith("uncertainty_") and suffix != "uncertainty_VR":
-            err = float(np.abs(a - b).max())
-            if err > 1e-5:
-                raise AssertionError(f"{family} {ds} {suffix}: card vs CPU {err} > 1e-5")
+            err = np.abs(a - b)
+            if err.max() > 1e-5:
+                row = int(err.argmax())
+                raise AssertionError(f"{family} {ds} {suffix}: card vs CPU {float(err.max())} > "
+                                     f"1e-5 (row {row}: {a[row]} / {b[row]}; "
+                                     f"{int((err > 1e-5).sum())} rows)")
         elif suffix == "dsa_scores":
             fin = np.isfinite(b)
             if not np.array_equal(fin, np.isfinite(a)):
                 raise AssertionError(f"{family} {ds} dsa: non-finite entries differ")
-            rel = float((np.abs(a[fin] - b[fin]) / np.abs(b[fin]).clip(1e-30)).max())
-            if rel > 1e-4:
-                raise AssertionError(f"{family} {ds} dsa: card vs CPU rtol {rel} > 1e-4")
+            rel = np.where(fin, np.abs(a - b) / np.abs(b).clip(1e-30), 0.0)
+            report["dsa_rows_apart"][ds] = np.flatnonzero(rel > 1e-4).tolist()
         elif suffix.endswith("_scores"):
             # cuDNN (or the attention kernel) and the CPU sum in other
             # orders; an activation within float32 rounding of a threshold
@@ -1088,6 +1445,72 @@ def compare_small(family: str, card: dict, cpu: dict) -> dict:
             if diff.max() > 2 or (diff > 0).mean() > 0.01:
                 raise AssertionError(f"{family} {ds} {suffix}: card vs CPU {int(diff.max())} apart")
     return report
+
+
+def _dsa_first_search(family: str, params, small, ds: str, device):
+    """DSA's first search as ``evaluate`` runs it (the surprise handler's
+    traces of the whole dataset ``ds`` of the small subset, batches of
+    1,024, a 30% subsample): (the nearest same-class row of each query, the
+    centred queries, the centred training rows), the last two on the CPU
+    in float64."""
+    cfg = PATHS[family]
+    model = BaseModel(cfg["model"](), params, cfg["sa"], include_last_layer=True,
+                      batch_size=1024, device=device)
+    x = (small[1] if ds == "nominal" else small[2])[0]
+    train, test = model.get_activations(small[0][0]), model.get_activations(x)
+
+    def flat(outs):
+        return torch.cat([t.reshape(t.shape[0], -1) for t in outs[:-1]], dim=1)
+
+    dsa = SA_VARIANTS["dsa"](VariantFitter(SharedTrainPrep(
+        flat(train), train[-1].argmax(1).cpu().numpy(), device), device, cfg["dsa_badge"]))
+    labels = test[-1].argmax(1).to(torch.int32)
+    queries = dsa.traces([flat(test)])
+    _, idx = dsa.nearest(queries, labels, True)
+    return idx.cpu().numpy(), queries.cpu().double(), dsa.rows.cpu().double()
+
+
+def first_search_tie(card: dict, cpu: dict, picks: tuple) -> bool:
+    """Whether card and CPU picking other rows ``picks`` = (card's, CPU's)
+    for one query is a tie: each side's pick is the nearer of the two on
+    its own traces (exact distances ``{row: distance}``, within rtol 1e-4,
+    the float32 expansion's rounding), so the two traces order them
+    differently, and neither distance moves between the sides by more
+    than 1e-3 of it (traces that far apart are a fault, not a tie)."""
+    a, b = picks
+    if a == b:
+        return False
+    scale = max(card[a], card[b], cpu[a], cpu[b])
+    moved = max(abs(card[a] - cpu[a]), abs(card[b] - cpu[b]))
+    return (card[a] <= card[b] + 1e-4 * scale and cpu[b] <= cpu[a] + 1e-4 * scale
+            and moved <= 1e-3 * scale)
+
+
+def dsa_ties(family: str, params, small, dev, rows_apart: dict) -> dict:
+    """Hold the small subset's DSA rows that card and CPU score apart: each
+    must be a tie of the first search (the same-class row nearest to the
+    query; ``first_search_tie``). The card's traces and the CPU's differ in
+    rounding (cuDNN, the kernels, the CPU's sums), which moves nearest
+    distances of ~0.1-1 by ~1e-5 relative; two rows that close can swap,
+    and the ratio's denominator (the swapped row's distance to the nearest
+    other-class row) then changes. Returns the tied rows per dataset."""
+    ties = {}
+    for ds, rows in rows_apart.items():
+        if not rows:
+            continue
+        sides = {name: _dsa_first_search(family, params, small, ds, device)
+                 for name, device in (("card", dev), ("cpu", torch.device("cpu")))}
+        for row in rows:
+            picks = (int(sides["card"][0][row]), int(sides["cpu"][0][row]))
+            dist = {name: {r: float((q[row] - train[r]).norm()) for r in picks}
+                    for name, (_, q, train) in sides.items()}
+            if not first_search_tie(dist["card"], dist["cpu"], picks):
+                raise AssertionError(f"{family} {ds} dsa row {row}: card and CPU scores apart "
+                                     f"by more than rtol 1e-4 without a first-search tie "
+                                     f"(nearest rows {picks}, distances {dist})")
+            ties.setdefault(ds, []).append({"row": row, "rows": list(picks),
+                                            "distances": dist})
+    return ties
 
 
 def apfd_report(art: dict) -> dict:
@@ -1303,15 +1726,20 @@ def mlsa_selection_moved(card, cpu, order_card, order_cpu) -> dict:
 
 
 def run_path(family: str, params, data, dev, root: str) -> dict:
-    """The path at full size with the counters read around it, its SA
-    variants' times and APFD table, then the small card-against-CPU
-    comparisons (the slice with DSA, then the four other SA variants)."""
+    """The path at full size through ``cli.main --phase test_prio`` on the
+    registry's study (run 0's checkpoint in ``root``/train) with the
+    counters read around it, its SA variants' times and APFD table, then
+    the small card-against-CPU comparisons (the slice with DSA, then the
+    four other SA variants)."""
+    path_root = os.path.join(root, "train")
+    os.environ["TIP_ASSETS"] = path_root
     zero_counters()
     t0 = time.perf_counter()
-    path_root = os.path.join(root, family)
-    phases, art, records, chosen_k = run_slice(family, params, data, dev, path_root)
+    [(phases, chosen_k)] = run_cli("--phase", "test_prio", "--case-study", family,
+                                   "--runs", "0", *device_args(dev)).values()
     seconds = time.perf_counter() - t0
     launches = read_counters()
+    art, records = read_artifacts(family, {"nominal": len(data[1][1]), "ood": len(data[2][1])})
     for name in PATHS[family]["kernels"]:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the {family} path")
@@ -1333,6 +1761,8 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
     _, cpu_art, _, _ = run_slice(family, params, small, torch.device("cpu"),
                                  os.path.join(root, f"{family}_cpu"), ("dsa",))
     small_report = compare_small(family, card_art, cpu_art)
+    small_report["dsa_ties"] = dsa_ties(family, params, small, dev,
+                                        small_report.pop("dsa_rows_apart"))
     flips = {k: v for k, v in small_report.items() if v}
     print(json.dumps({"path": family, "small_card_vs_cpu_flips": flips}))
     sa_small = compare_sa_small(family, params, data, dev)
@@ -1341,14 +1771,16 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
             "apfd_table": table, "small": small_report, "sa_small": sa_small}
 
 
-def al_case_study(data) -> CaseStudy:
-    """MNIST's case study for the AL phase: the path's one-epoch train
-    config and the registry's AL settings, its training base cut to the
-    first ``AL_TRAIN_ROWS`` rows."""
+def al_spec(data):
+    """MNIST's registry study for the AL phase: one-epoch retrains and the
+    registry's AL settings (checked), its training base cut to the first
+    ``AL_TRAIN_ROWS`` rows of its loader's."""
     (x_tr, y_tr), nominal, ood = data
-    cs = case_study(AL_FAMILY, ((x_tr[:AL_TRAIN_ROWS], y_tr[:AL_TRAIN_ROWS]), nominal, ood))
-    return CaseStudy(dataclasses.replace(cs.spec, al_observed_share=AL_OBSERVED_SHARE,
-                                         al_num_selected=AL_NUM_SELECTED))
+    cut = ((x_tr[:AL_TRAIN_ROWS], y_tr[:AL_TRAIN_ROWS]), nominal, ood)
+    spec = dataclasses.replace(registry_spec(AL_FAMILY), loader=lambda device=None: cut)
+    if (spec.al_observed_share, spec.al_num_selected) != (AL_OBSERVED_SHARE, AL_NUM_SELECTED):
+        raise AssertionError("AL settings differ from the registry")
+    return spec
 
 
 def read_al_pickles(family: str, has_dropout: bool) -> dict:
@@ -1376,23 +1808,30 @@ def read_al_pickles(family: str, has_dropout: bool) -> dict:
 
 def run_active_learning(data, dev, root: str) -> dict:
     """MNIST's AL phase on run 0's checkpoint (in ``root``/train) through
-    ``CaseStudy.run_active_learning_eval`` with the counters read around
-    it. Checks launches, pickles, each retrain's epoch and the random
-    baseline's floor; prints its seconds and its AL table row."""
-    cs = al_case_study(data)
+    ``cli.main --phase active_learning`` on the registry's study (``al_spec``
+    in its place for the call) with the counters read around it. Checks
+    launches, pickles, each retrain's epoch and the random baseline's
+    floor; prints its seconds and its AL table row."""
+    spec = al_spec(data)
     os.environ["TIP_ASSETS"] = os.path.join(root, "train")
-    zero_counters()
-    t0 = time.perf_counter()
-    [run] = cs.run_active_learning_eval([0], device=dev).values()
-    seconds = time.perf_counter() - t0
+    full = base.CASE_STUDIES[AL_FAMILY]
+    base.CASE_STUDIES[AL_FAMILY] = spec
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        [run] = run_cli("--phase", "active_learning", "--case-study", AL_FAMILY,
+                        "--runs", "0", *device_args(dev)).values()
+        seconds = time.perf_counter() - t0
+    finally:
+        base.CASE_STUDIES[AL_FAMILY] = full
     phases, members = run.seconds, run.retrain_epochs
     launches = read_counters()
     for name in PATHS[AL_FAMILY]["kernels"]:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the {AL_FAMILY} AL path")
     accuracies = read_al_pickles(AL_FAMILY, PATHS[AL_FAMILY]["model"].has_dropout)
-    n_train = training_rows(AL_TRAIN_ROWS + AL_NUM_SELECTED, cs.spec.train_cfg.validation_split)
-    steps = -(-n_train // cs.spec.train_cfg.batch_size)
+    n_train = training_rows(AL_TRAIN_ROWS + AL_NUM_SELECTED, spec.train_cfg.validation_split)
+    steps = -(-n_train // spec.train_cfg.batch_size)
     if len(members) != len(accuracies) - 1:
         raise AssertionError(f"{len(members)} retrains for {len(accuracies) - 1} selections")
     for i, history in enumerate(members):
@@ -1460,7 +1899,7 @@ def al_selections(params, datasets, x_train, k: int, device) -> tuple:
 
 def compare_al_selections(params, data, dev) -> dict:
     """The four selection builders on a small subset (``AL_CHECK``) on the
-    card and on the CPU: rows moved per selection, gated as phase 7 of the
+    card and on the CPU: rows moved per selection, gated as phase 10 of the
     module docstring says."""
     n_train, n_test, k = AL_CHECK
     (x_tr, _), (x_nom, y_nom), (x_ood, y_ood) = data
@@ -1564,6 +2003,36 @@ def check_collect_activations(tree, data, dev, root: str) -> dict:
     return report
 
 
+def run_evaluation_and_check(root: str) -> dict:
+    """``cli.main --phase evaluation`` (test_prio and active_learning) and
+    ``--phase check`` over the paths' assets: the two tables written, and
+    each path's run 0 complete in the check's report."""
+    os.environ["TIP_ASSETS"] = os.path.join(root, "train")
+    for which, table in (("test_prio", "apfds.csv"), ("active_learning", "active.csv")):
+        run_cli("--phase", "evaluation", "--eval", which)
+        if not os.path.getsize(os.path.join(subdir("results"), table)):
+            raise AssertionError(f"evaluation {which}: {table} is empty")
+    from simple_tip_tpu_torch.utils import artifact_check
+
+    report = {}
+    for family in PATHS:
+        dropout = PATHS[family]["model"].has_dropout
+        missing = {
+            "models": artifact_check.check_model_checkpoints(family, range(1)),
+            "prio": sorted(artifact_check.check_prio_artifacts(family, range(1), dropout)),
+            "times": sorted(artifact_check.check_times_artifacts(family, range(1), dropout)),
+        }
+        if family == AL_FAMILY:
+            missing["active_learning"] = sorted(
+                artifact_check.check_al_artifacts(family, range(1), dropout))
+        if any(missing.values()):
+            raise AssertionError(f"check {family}: run 0 misses {missing}")
+        report[family] = artifact_check.data_source(family)
+    run_cli("--phase", "check")
+    print(json.dumps({"evaluation_and_check": report}))
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1573,6 +2042,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     dev = resolve(None)
+    # Deterministic cuDNN algorithms: the trained weights, and with them the
+    # card-against-CPU checks on them (SA fits near singular, DSA's near
+    # ties), are then the same in every run of this command on this card.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1587,14 +2061,21 @@ def main() -> int:
     print(f"build_s {build_s:.3f}")
     print(_build.build_log())
 
-    t0 = time.perf_counter()
-    data = {family: make_data(family, args.seed) for family in PATHS}
-    print(f"data_s {time.perf_counter() - t0:.3f}")
-
     root = tempfile.mkdtemp(prefix="tip_chip_smoke_")
     paths = {}
     try:
+        t0 = time.perf_counter()
+        studies, data_record = data_phase(os.path.join(root, "datasets"), args.seed, dev)
+        data = {family: studies[family] for family in PATHS}
+        data_record["corruptor"] = check_corruptor(
+            {"28x28x1": studies["mnist"][1][0][:len(CORRUPTOR_INDICES)],
+             "32x32x3": studies["cifar10"][1][0][:len(CORRUPTOR_INDICES)]}, args.seed, dev)
+        data_record["text"] = check_text(args.seed, dev, root)
+        print(f"data_s {time.perf_counter() - t0:.3f}")
+
         os.environ["TIP_ASSETS"] = os.path.join(root, "train")
+        for family in PATHS:
+            base.CASE_STUDIES[family] = registry_spec(family)
         training, params = {}, {}
         trees = {}
         for family in PATHS:
@@ -1626,12 +2107,15 @@ def main() -> int:
         active = run_active_learning(data[AL_FAMILY], dev, root)
         al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev)
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
+        evaluation = run_evaluation_and_check(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"train_s": {f: t["train_s"] for f, t in training.items()},
                       "paths_s": {f: p["slice_s"] for f, p in paths.items()},
                       "total_s": sum(p["slice_s"] for p in paths.values()),
-                      "active_learning_s": active["seconds"]}))
+                      "active_learning_s": active["seconds"],
+                      "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
+                      "command_s": time.perf_counter() - START}))
 
     def launches_by_path(name):
         return {f: p["launches"][name] for f, p in paths.items() if name in PATHS[f]["kernels"]}
@@ -1654,7 +2138,8 @@ def main() -> int:
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"gpu": smi, "build_s": build_s, "kernels": kernels, "training": training,
+            json.dump({"gpu": smi, "build_s": build_s, "data": data_record,
+                       "evaluation": evaluation, "kernels": kernels, "training": training,
                        "imdb_gradients": gradients, "wide_heads": wide, "classes": classes,
                        "paths": paths, "active_learning": active, "al_selections": al_check,
                        "at_collection": activations}, f, indent=1)

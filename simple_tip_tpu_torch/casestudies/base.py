@@ -15,10 +15,13 @@ Counterpart of the JAX package's ``casestudies/base.py`` ``CaseStudy``:
 - ``collect_activations`` dumps every tap (``engine/activation_persistor.py``,
   the ``at_collection`` phase).
 
-The paper registry (mnist, fmnist, cifar10, imdb) needs ``data/loaders.py``
-and the corruption generators, which the port does not have yet;
-``get_case_study`` resolves the mini studies (``casestudies/mini.py``) and
-the ``TIP_CASE_STUDY_PROVIDER`` hook.
+A spec's ``loader(device=...)`` returns the three (x, y) pairs; each phase
+passes it the phase's device, on which the image loaders generate a
+missing corruption cache. ``CASE_STUDIES`` is the paper's registry (mnist,
+fmnist, cifar10, imdb), field for field the JAX package's, in float32 (the
+JAX package's bf16 scoring mode is not ported); ``get_case_study``
+resolves it, then the mini studies (``casestudies/mini.py``), then the
+``TIP_CASE_STUDY_PROVIDER`` hook.
 """
 
 import importlib
@@ -31,12 +34,14 @@ import numpy as np
 
 from simple_tip_tpu_torch.bridge import params_from_jax, params_to_jax
 from simple_tip_tpu_torch.config import subdir
+from simple_tip_tpu_torch.data import load_cifar10, load_fmnist, load_imdb, load_mnist
 from simple_tip_tpu_torch.device import DeviceLike, resolve
 from simple_tip_tpu_torch.engine import (
     activation_persistor,
     eval_active_learning,
     eval_prioritization,
 )
+from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 from simple_tip_tpu_torch.models.train import TrainConfig, accuracy
 from simple_tip_tpu_torch.parallel.al_ensemble import al_retrain_ensemble
 from simple_tip_tpu_torch.parallel.ensemble import train_ensemble, unstack
@@ -44,12 +49,11 @@ from simple_tip_tpu_torch.utils import checkpoint
 
 logger = logging.getLogger(__name__)
 
-PAPER_STUDIES = ("mnist", "fmnist", "cifar10", "imdb")
-
 
 @dataclass(frozen=True)
 class CaseStudySpec:
-    """Declarative configuration of one case study (hyperparameter registry)."""
+    """Declarative configuration of one case study (hyperparameter
+    registry); ``loader(device=...)`` returns the three (x, y) pairs."""
 
     name: str
     model_factory: Callable
@@ -115,7 +119,7 @@ class CaseStudy:
             logger.info("[%s] all %d requested models exist", self.spec.name, len(model_ids))
             return {}
         device = resolve(device)
-        (x_train, y_train), _, _ = self.spec.loader()
+        (x_train, y_train), _, _ = self.spec.loader(device=device)
         y_onehot = np.eye(self.spec.num_classes, dtype=np.float32)[
             np.asarray(y_train).astype(np.int64).flatten()
         ]
@@ -127,16 +131,16 @@ class CaseStudy:
             self.save_params(model_id, unstack(stacked, i))
         return histories
 
-    def run_prio_eval(self, model_ids: List[int], device: DeviceLike = None) -> Dict[int, Dict]:
+    def run_prio_eval(self, model_ids: List[int], device: DeviceLike = None) -> Dict[int, tuple]:
         """Run the test-prioritization phase for the requested runs; returns
-        each run's phase seconds."""
+        each run's ``(phase seconds, {SA variant: the k it chose})``."""
         device = resolve(device)
-        (x_train, _), (x_test, y_test), (ood_x, ood_y) = self.spec.loader()
+        (x_train, _), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
         phases = {}
         for model_id in model_ids:
             params = params_from_jax(self.load_params(model_id))
             logger.info("[%s] prioritization eval for run %d", self.spec.name, model_id)
-            phases[model_id], _ = eval_prioritization.evaluate(
+            phases[model_id] = eval_prioritization.evaluate(
                 model_id=model_id,
                 case_study=self.spec.name,
                 model_def=self.model_def,
@@ -163,7 +167,7 @@ class CaseStudy:
         through ``al_retrain_ensemble``: one copy of the training set on the
         device, each retrain's rows gathered there."""
         device = resolve(device)
-        (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader()
+        (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
         eye = np.eye(self.spec.num_classes, dtype=np.float32)
         train_y_onehot = eye[np.asarray(y_train).astype(np.int64).flatten()]
 
@@ -205,7 +209,7 @@ class CaseStudy:
     def collect_activations(self, model_ids: List[int], device: DeviceLike = None) -> None:
         """Dump every tap of the requested runs (the at_collection phase)."""
         device = resolve(device)
-        (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader()
+        (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
         for model_id in model_ids:
             activation_persistor.persist(
                 model_def=self.model_def,
@@ -219,12 +223,69 @@ class CaseStudy:
             )
 
 
+# ---------------------------------------------------------------------------
+# Registry (the JAX package's ``CASE_STUDIES``: the reference's hyperparameters)
+# ---------------------------------------------------------------------------
+
+CASE_STUDIES = {
+    "mnist": CaseStudySpec(
+        name="mnist",
+        model_factory=MnistConvNet,
+        loader=load_mnist,
+        train_cfg=TrainConfig(batch_size=128, epochs=15, validation_split=0.1),
+        nc_activation_layers=(0, 1, 2, 3),
+        sa_activation_layers=(3,),
+        prediction_badge_size=128,
+        num_classes=10,
+        al_num_selected=1000,
+    ),
+    "fmnist": CaseStudySpec(
+        name="fmnist",
+        model_factory=MnistConvNet,
+        loader=load_fmnist,
+        train_cfg=TrainConfig(batch_size=128, epochs=15, validation_split=0.1),
+        nc_activation_layers=(0, 1, 2, 3),
+        sa_activation_layers=(3,),
+        prediction_badge_size=128,
+        num_classes=10,
+        al_num_selected=1000,
+    ),
+    "cifar10": CaseStudySpec(
+        name="cifar10",
+        model_factory=Cifar10ConvNet,
+        loader=load_cifar10,
+        train_cfg=TrainConfig(batch_size=32, epochs=20, validation_split=0.1),
+        nc_activation_layers=(0, 1, 2, 3),
+        sa_activation_layers=(3,),
+        prediction_badge_size=32,
+        num_classes=10,
+        al_num_selected=1000,
+    ),
+    "imdb": CaseStudySpec(
+        name="imdb",
+        model_factory=ImdbTransformer,
+        loader=load_imdb,
+        train_cfg=TrainConfig(batch_size=32, epochs=10, validation_split=0.1),
+        # The reference's tuple-form tap entries are ignored there; the
+        # effective taps are (3, 5).
+        nc_activation_layers=(3, 5),
+        sa_activation_layers=(5,),
+        prediction_badge_size=600,
+        num_classes=2,
+        al_num_selected=2500,
+        dsa_badge_size=500,
+    ),
+}
+
+
 def get_case_study(name: str) -> CaseStudy:
-    """Look up a case study by name: the mini studies, then the
-    ``TIP_CASE_STUDY_PROVIDER`` hook (``module:function``, which receives
-    the name and returns a ``CaseStudy`` or None)."""
+    """Look up a case study by name: the paper registry, then the mini
+    studies, then the ``TIP_CASE_STUDY_PROVIDER`` hook (``module:function``,
+    which receives the name and returns a ``CaseStudy`` or None)."""
     from simple_tip_tpu_torch.casestudies import mini
 
+    if name in CASE_STUDIES:
+        return CaseStudy(CASE_STUDIES[name])
     found = mini.provide(name)
     if found is not None:
         return found
@@ -234,13 +295,8 @@ def get_case_study(name: str) -> CaseStudy:
         found = getattr(importlib.import_module(mod_name), attr)(name)
         if found is not None:
             return found
-    if name in PAPER_STUDIES:
-        raise KeyError(
-            f"case study {name!r} needs the port of data/loaders.py and the "
-            "corruption generators (data/image_corruptor.py), which the port "
-            "does not have yet; the mini studies and TIP_CASE_STUDY_PROVIDER work"
-        )
     raise KeyError(
-        f"unknown case study {name!r} (mini studies: {sorted(mini.MINI_CASE_STUDIES)}; "
-        "set TIP_CASE_STUDY_PROVIDER=module:function for custom ones)"
+        f"unknown case study {name!r} (registry: {sorted(CASE_STUDIES)}; mini studies: "
+        f"{sorted(mini.MINI_CASE_STUDIES)}; set TIP_CASE_STUDY_PROVIDER=module:function "
+        "for custom ones)"
     )

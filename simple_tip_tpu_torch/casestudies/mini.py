@@ -23,9 +23,10 @@ N_TEST = 300
 
 def image_loader(shape, seed: int, n_train: int = N_TRAIN, n_test: int = N_TEST):
     """A loader of ``((x_train, y_train), (x_test, y_test), (ood_x, ood_y))``:
-    the OOD set is the nominal set and its corrupted copy, shuffled."""
+    the OOD set is the nominal set and its corrupted copy, shuffled. Its
+    ``device`` is unused (the stand-ins are made with numpy)."""
 
-    def loader():
+    def loader(device=None):
         (x_train, y_train), (x_test, y_test) = synthetic.image_classification(
             seed=seed, n_train=n_train, n_test=n_test, shape=shape, num_classes=10
         )

@@ -1,0 +1,152 @@
+"""Command line of the port: the experiment phases on the card.
+
+Counterpart of the JAX package's ``cli.py`` with the same phases, case
+studies and run-id syntax:
+
+    python -m simple_tip_tpu_torch.cli --phase training --case-study mnist --runs 0-4
+    python -m simple_tip_tpu_torch.cli --phase test_prio --case-study mnist --runs 0
+    python -m simple_tip_tpu_torch.cli --phase evaluation --eval test_prio
+    python -m simple_tip_tpu_torch.cli --phase check --case-study mnist
+
+The phases that run models (training, test_prio, active_learning,
+at_collection) run on the CUDA card unless ``--device cpu`` is given; with
+no card and no ``--device cpu`` the command fails before it reads or writes
+anything. There is no fallback to the CPU. ``evaluation`` and ``check`` read
+the artifact bus on the host. Worker processes (``--workers`` above 1) and
+the ``*_statistics`` evaluations are not ported yet and are refused.
+"""
+
+import argparse
+import logging
+import os
+import sys
+from typing import List
+
+PHASES = ["training", "test_prio", "active_learning", "evaluation", "at_collection", "check"]
+CASE_STUDIES = ["mnist", "cifar10", "fmnist", "imdb"]
+EVALS = ["test_prio", "active_learning", "test_prio_statistics", "active_learning_statistics"]
+ALL_CASE_STUDIES = ("mnist", "fmnist", "cifar10", "imdb")
+
+
+def _parse_runs(spec: str) -> List[int]:
+    """Parse '0', '0-4', '0,3,7' or '-1' (= all 100) into run-id lists."""
+    spec = spec.strip()
+    if spec == "-1":
+        return list(range(100))
+    runs: List[int] = []
+    for part in spec.split(","):
+        if "-" in part and not part.startswith("-"):
+            lo, hi = part.split("-")
+            if int(hi) < int(lo):
+                raise SystemExit(
+                    f"--runs: inverted range {part!r} selects nothing "
+                    f"(did you mean {hi}-{lo}?)"
+                )
+            runs.extend(range(int(lo), int(hi) + 1))
+        else:
+            runs.append(int(part))
+    if not runs:
+        raise SystemExit(f"--runs: {spec!r} selects no run ids")
+    return runs
+
+
+def _run_eval(which: str, case_studies=ALL_CASE_STUDIES):
+    if which == "test_prio":
+        from simple_tip_tpu_torch.plotters import eval_apfd_table
+
+        eval_apfd_table.run(case_studies=case_studies)
+    elif which == "active_learning":
+        from simple_tip_tpu_torch.plotters import eval_active_learning_table
+
+        eval_active_learning_table.run(case_studies=case_studies)
+    else:
+        raise ValueError(f"Unknown eval type: {which}")
+
+
+def dispatch_phase(cs, phase: str, runs, device):
+    """Run one model phase on a ``CaseStudy`` on ``device``; returns what
+    the phase returns (its records per run)."""
+    if phase == "training":
+        return cs.train(runs, device=device)
+    if phase == "test_prio":
+        return cs.run_prio_eval(runs, device=device)
+    if phase == "active_learning":
+        return cs.run_active_learning_eval(runs, device=device)
+    if phase == "at_collection":
+        return cs.collect_activations(runs, device=device)
+    raise ValueError(f"Unknown phase: {phase}")
+
+
+def main(argv=None) -> int:
+    """CLI entry point; returns the exit code."""
+    parser = argparse.ArgumentParser(
+        description="PyTorch/CUDA port of the simple-tip experiments."
+    )
+    parser.add_argument("--phase", choices=PHASES, required=True)
+    parser.add_argument("--case-study", choices=CASE_STUDIES)
+    parser.add_argument(
+        "--runs",
+        default="0",
+        help="run ids: '0', '0-4', '0,3,7', or -1 for all 100",
+    )
+    parser.add_argument("--eval", choices=EVALS, help="evaluation to run (phase=evaluation)")
+    parser.add_argument(
+        "--workers",
+        type=int,
+        default=int(os.environ.get("TIP_NUM_WORKERS", "1")),
+        help="worker processes (only 1 is ported)",
+    )
+    parser.add_argument(
+        "--device",
+        default=None,
+        help="torch device of the model phases: the CUDA card by default, 'cpu' when asked",
+    )
+    parser.add_argument("-v", "--verbose", action="store_true")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING)
+
+    if args.phase == "check":
+        from simple_tip_tpu_torch.utils.artifact_check import report
+
+        for cs_name in [args.case_study] if args.case_study else CASE_STUDIES:
+            print(report(cs_name, has_dropout=cs_name != "cifar10"))
+        return 0
+
+    if args.phase == "evaluation":
+        which = args.eval or "test_prio"
+        if which.endswith("_statistics"):
+            print(f"--eval {which}: the statistics evaluations are not ported yet "
+                  "(no eval_apfd_correlation / eval_active_correlation in the port)",
+                  file=sys.stderr)
+            return 2
+        _run_eval(which)
+        print("Done. Check your assets results folder for the reproduced result files.")
+        return 0
+
+    if not args.case_study:
+        parser.error("--case-study is required for non-evaluation phases")
+    runs = _parse_runs(args.runs)
+    if args.workers > 1:
+        print(f"--workers {args.workers}: worker processes are not ported yet (no run "
+              "scheduler in the port); run with --workers 1", file=sys.stderr)
+        return 2
+
+    from simple_tip_tpu_torch.device import resolve
+
+    try:
+        device = resolve(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"--device: {e}", file=sys.stderr)
+        return 2
+
+    from simple_tip_tpu_torch.casestudies.base import get_case_study
+
+    cs = get_case_study(args.case_study)
+    dispatch_phase(cs, args.phase, runs, device)
+    print("Done.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

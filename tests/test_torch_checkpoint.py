@@ -190,8 +190,8 @@ def test_case_study_trains_reuses_and_scores(tmp_path, monkeypatch):
 
 def test_get_case_study_resolves_minis_and_the_provider_and_names_what_is_missing(monkeypatch):
     assert base.get_case_study("mini-cifar10").spec.name == "mini-cifar10"
-    with pytest.raises(KeyError, match="loaders"):
-        base.get_case_study("imdb")
+    # the paper names resolve to the registry since the port has the loaders
+    assert base.get_case_study("imdb").spec is base.CASE_STUDIES["imdb"]
     with pytest.raises(KeyError, match="unknown"):
         base.get_case_study("svhn")
     monkeypatch.setenv("TIP_CASE_STUDY_PROVIDER", "test_torch_checkpoint:_provide")

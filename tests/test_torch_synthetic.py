@@ -35,3 +35,21 @@ def test_tokens_and_their_corruption_match():
     _assert_same([*got[0], *got[1]], [*want[0], *want[1]])
     _assert_same([synthetic.corrupt_tokens(got[1][0], 6)],
                  [jax_synthetic.corrupt_tokens(want[1][0], 6)])
+
+
+@pytest.mark.parametrize("hardness", ["0", "0.2", "1.5", "junk"])
+def test_hardness_knob_matches(monkeypatch, hardness):
+    """``TIP_SYNTH_HARDNESS`` (clipped, and the default where it does not
+    parse) and ``hard_frac`` pick the same arrays as in the JAX package,
+    including the older token stream at hardness 0."""
+    monkeypatch.setenv("TIP_SYNTH_HARDNESS", hardness)
+    got = synthetic.image_classification(3, 60, 20, (28, 28, 1))
+    want = jax_synthetic.image_classification(3, 60, 20, (28, 28, 1))
+    _assert_same([*got[0], *got[1]], [*want[0], *want[1]])
+    got = synthetic.token_classification(5, 60, 20)
+    want = jax_synthetic.token_classification(5, 60, 20)
+    _assert_same([*got[0], *got[1]], [*want[0], *want[1]])
+    for frac in (0.0, 0.3):
+        got = synthetic.token_classification(5, 40, 10, hard_frac=frac)
+        want = jax_synthetic.token_classification(5, 40, 10, hard_frac=frac)
+        _assert_same([*got[0], *got[1]], [*want[0], *want[1]])
