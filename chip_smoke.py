@@ -106,7 +106,24 @@ Needs one CUDA card; exits non-zero without one (and without the
    NAC_0.75 is printed, then per SA variant its setup and score seconds on
    both datasets and its +inf count, pc-mmdsa's chosen k, and the family's
    row of the APFD table (``plotters/eval_apfd_table``: all 39 approaches,
-   nominal and OOD, with their reported times);
+   nominal and OOD, with their reported times). The run fills both caches
+   under the temp ``TIP_ASSETS`` with their defaults: per path each SA
+   entry's bytes and store seconds, the seconds of hashing each
+   fingerprint and the coverage-statistics entry are printed
+   (``CacheRecorder``), every SA entry's meta checked (for CIFAR-10, whose
+   entries are the largest, that is their whole check);
+   then, for MNIST and IMDB, a fresh interpreter (``chip_smoke.py
+   --warm-cache FAMILY``, as a run scheduler starts one) builds run 0's
+   ``SurpriseHandler`` and ``CoverageWorker`` from the registry on the same
+   (weights, training set, taps): 5 SA hits, no training-set forward pass,
+   each variant's nominal scores and SC-CAM order byte-equal to the
+   artifacts, B2 launched from the loaded DSA, the coverage statistics a
+   hit and byte-equal to a recompute, and pc-mdsa's entry loaded onto the
+   CPU, its scores of 500 rows within ``SA_RTOL`` of the card's; its warm
+   setup seconds are printed beside the cold ones; and IMDB's
+   ``CoverageWorker`` with ``spill="disk"``: its 12 metrics' scores and CAM
+   orders on both sets byte-equal to the artifacts, its spill directories
+   removed;
 8. per path, the slice with DSA on a small subset on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
@@ -133,7 +150,10 @@ Needs one CUDA card; exits non-zero without one (and without the
    first 12,000 of the 60,000 training rows**. Checks: the 81 pickles'
    names and layout, every accuracy in [0, 1], the selections' sanity
    checks (inside ``evaluate``), each retrain's one epoch, and the random
-   baseline's retrain at ``AL_RANDOM_FLOOR`` on both nominal splits. Prints the seconds of scoring the original model, of
+   baseline's retrain at ``AL_RANDOM_FLOOR`` on both nominal splits. Its
+   training base is cut, so its fingerprint is not that of ``test_prio``:
+   both caches miss by design, and each variant's outcome is printed.
+   Prints the seconds of scoring the original model, of
    each selection (FP / NC / SA), of all retrains and per retrain, and of
    scoring the retrained models, and MNIST's row of the AL table
    (``plotters/eval_active_learning_table``);
@@ -147,15 +167,18 @@ Needs one CUDA card; exits non-zero without one (and without the
    counted only (other generators). The SA builder runs dsa, pc-lsa,
    pc-mdsa and pc-mmdsa: pc-mlsa's CPU fit at 1,600 features takes about
    a minute a class, and its known card/CPU gap is counted at full width
-   in phase 8;
+   in phase 8; both caches are off here (the CPU would load the card's
+   fits);
 11. ``at_collection`` (``CaseStudy.collect_activations``) of MNIST run 0 on
    the first 1,000 rows of each set, on the card and on the CPU: the same
    files, dtypes and shapes, labels byte-equal, each tap within 1e-5 of its
    largest magnitude;
-12. ``cli.main`` ``--phase evaluation`` (``--eval test_prio`` and
-   ``active_learning``) and ``--phase check`` over the paths' assets: both
-   tables written, every path's run 0 complete (models, prio artifacts,
-   times; MNIST's AL pickles).
+12. ``cli.main`` ``--phase evaluation`` (``--eval test_prio``,
+   ``active_learning``, ``test_prio_statistics`` and
+   ``active_learning_statistics``) and ``--phase check`` over the paths'
+   assets: both tables written with their LaTeX paper tables, the four
+   statistics CSVs the 39 x 39 grid under the human labels, every path's
+   run 0 complete (models, prio artifacts, times; MNIST's AL pickles).
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does each of its products (``UNITS``): 3xTF32
@@ -176,6 +199,7 @@ initializers drawn from the run id.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -197,10 +221,20 @@ from simple_tip_tpu_torch.casestudies.base import CaseStudy
 from simple_tip_tpu_torch.config import subdir
 from simple_tip_tpu_torch.data import image_corruptor, imdb_prep, loaders, synthetic
 from simple_tip_tpu_torch.device import resolve, synchronize
-from simple_tip_tpu_torch.engine import eval_active_learning, eval_prioritization
+from simple_tip_tpu_torch.engine import (
+    coverage_stats_cache,
+    eval_active_learning,
+    eval_prioritization,
+    sa_prep,
+)
+from simple_tip_tpu_torch.engine.coverage_handler import CoverageWorker
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.engine.sa_prep import SharedTrainPrep, VariantFitter
-from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS, _sc_cam_order
+from simple_tip_tpu_torch.engine.surprise_handler import (
+    SA_VARIANTS,
+    SurpriseHandler,
+    _sc_cam_order,
+)
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 from simple_tip_tpu_torch.models.predict import PREDICT_BATCH, predict, to_device
 from simple_tip_tpu_torch.models.train import (
@@ -213,7 +247,7 @@ from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.ops.levenshtein import lev_matrix, levenshtein
 from simple_tip_tpu_torch.ops.text_corruptor import TextCorruptor
 from simple_tip_tpu_torch.plotters import eval_active_learning_table, eval_apfd_table, times_collector
-from simple_tip_tpu_torch.plotters.utils import APPROACHES
+from simple_tip_tpu_torch.plotters.utils import APPROACHES, human_approach_names
 from simple_tip_tpu_torch.utils import checkpoint
 
 START = time.perf_counter()  # the command's clock, from the imports on
@@ -307,6 +341,14 @@ AL_RANDOM_FLOOR = 0.7
 AL_CHECK = (20_000, 500, 50)
 AL_CHECK_SA = ("dsa", "pc-lsa", "pc-mdsa", "pc-mmdsa")
 AL_UNCERTAINTY_ATOL = 1e-5
+# The fresh-interpreter check of the caches that phase 7 filled: the paths
+# it runs on (CIFAR-10's entries, the largest, are checked by their meta),
+# its limit in seconds, and the rows of the nominal set on which an entry
+# loaded onto the CPU is scored against the card.
+WARM_CACHE_PATHS = ("mnist", "imdb")
+WARM_CACHE_TIMEOUT_S = 600
+CPU_ENTRY_ROWS = 500
+CACHE_VARS = ("TIP_SA_CACHE_DIR", "TIP_COV_STATS_CACHE_DIR")
 # at_collection: rows dumped per set, and the tolerance of each tap (card
 # against CPU) relative to the tap's largest magnitude
 ACTIVATION_ROWS = 1_000
@@ -1735,10 +1777,12 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
     os.environ["TIP_ASSETS"] = path_root
     zero_counters()
     t0 = time.perf_counter()
-    [(phases, chosen_k)] = run_cli("--phase", "test_prio", "--case-study", family,
-                                   "--runs", "0", *device_args(dev)).values()
+    with CacheRecorder() as recorder:
+        [(phases, chosen_k)] = run_cli("--phase", "test_prio", "--case-study", family,
+                                       "--runs", "0", *device_args(dev)).values()
     seconds = time.perf_counter() - t0
     launches = read_counters()
+    caches = check_cache_entries(family, recorder)
     art, records = read_artifacts(family, {"nominal": len(data[1][1]), "ood": len(data[2][1])})
     for name in PATHS[family]["kernels"]:
         if launches[name] <= 0:
@@ -1749,6 +1793,7 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
                       "phases_s": phases, "launches": launches, "apfd": apfd}))
     print(json.dumps({"path": family, "time_records": records}))
     print(json.dumps({"path": family, "sa": sa}))
+    print(json.dumps({"path": family, "caches": caches}))
     table = apfd_table_row(family, path_root)
     print(json.dumps({"path": family, "apfd_table": table}))
     small = (
@@ -1768,7 +1813,310 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
     sa_small = compare_sa_small(family, params, data, dev)
     return {"sizes": PATHS[family]["sizes"], "slice_s": seconds, "phases_s": phases,
             "launches": launches, "apfd": apfd, "time_records": records, "sa": sa,
-            "apfd_table": table, "small": small_report, "sa_small": sa_small}
+            "caches": caches, "apfd_table": table, "small": small_report, "sa_small": sa_small}
+
+
+class CacheRecorder:
+    """For the span of a ``with``: each store of the two caches (its entry's
+    bytes and seconds), each fingerprint hashed (its seconds), and the
+    cache outcomes of every ``SurpriseHandler.evaluate_all`` and
+    ``CoverageWorker`` made inside it."""
+
+    def __enter__(self):
+        self.sa_stores, self.cov_stores, self.hashes = {}, [], []
+        self.sa_outcomes, self.cov_outcomes = [], []
+        self._saved = []
+
+        def wrap(owner, name, make):
+            original = getattr(owner, name)
+            self._saved.append((owner, name, original))
+            setattr(owner, name, make(original))
+
+        def sa_store(original):
+            def store(cache, sa_name, scorer):
+                t0 = time.perf_counter()
+                original(cache, sa_name, scorer)
+                self.sa_stores[sa_name] = {"bytes": os.path.getsize(cache.path(sa_name)),
+                                           "store_s": time.perf_counter() - t0}
+            return store
+
+        def cov_store(original):
+            def store(cache, stats):
+                t0 = time.perf_counter()
+                original(cache, stats)
+                self.cov_stores.append({"bytes": os.path.getsize(cache.path),
+                                        "store_s": time.perf_counter() - t0})
+            return store
+
+        def hashing(original):
+            def content_fingerprint(version, *args):
+                t0 = time.perf_counter()
+                fp = original(version, *args)
+                self.hashes.append({"version": version, "seconds": time.perf_counter() - t0})
+                return fp
+            return content_fingerprint
+
+        def sa_outcomes(original):
+            def evaluate_all(handler, *args, **kwargs):
+                out = original(handler, *args, **kwargs)
+                self.sa_outcomes.append(dict(handler.cache_outcomes))
+                return out
+            return evaluate_all
+
+        def cov_outcome(original):
+            def __init__(worker, *args, **kwargs):
+                original(worker, *args, **kwargs)
+                self.cov_outcomes.append(worker.stats_cache_outcome)
+            return __init__
+
+        wrap(sa_prep.SAFitCache, "store", sa_store)
+        wrap(coverage_stats_cache.CoverageStatsCache, "store", cov_store)
+        wrap(sa_prep, "content_fingerprint", hashing)
+        wrap(coverage_stats_cache, "content_fingerprint", hashing)
+        wrap(SurpriseHandler, "evaluate_all", sa_outcomes)
+        wrap(CoverageWorker, "__init__", cov_outcome)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
+
+    def report(self) -> dict:
+        return {"sa_entries": self.sa_stores,
+                "sa_bytes": sum(e["bytes"] for e in self.sa_stores.values()),
+                "sa_store_s": sum(e["store_s"] for e in self.sa_stores.values()),
+                "coverage_entries": self.cov_stores, "fingerprints": self.hashes,
+                "sa_outcomes": self.sa_outcomes, "coverage_outcomes": self.cov_outcomes}
+
+
+def entry_meta(path: str) -> dict:
+    """The meta of an SA fit cache entry, read without its scorer."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def check_cache_entries(family: str, recorder: CacheRecorder) -> dict:
+    """Phase 7's stores: an entry of every SA variant and one of the
+    coverage statistics, each on disk; each SA entry's meta names its
+    variant, this package's version, the run's case study and model."""
+    rec = recorder.report()
+    if sorted(rec["sa_entries"]) != sorted(SA_NAMES):
+        raise AssertionError(f"{family}: SA entries stored for {sorted(rec['sa_entries'])}")
+    if len(rec["coverage_entries"]) != 1:
+        raise AssertionError(f"{family}: {len(rec['coverage_entries'])} coverage entries stored")
+    folder = subdir("sa_fit_cache")
+    for name in SA_NAMES:
+        paths = [os.path.join(folder, f) for f in os.listdir(folder)
+                 if f.startswith(f"{family}_0_") and f.endswith(f"_{name}.pkl")]
+        if len(paths) != 1:
+            raise AssertionError(f"{family}: {len(paths)} entries of {name} on disk")
+        path = paths[0]
+        meta = entry_meta(path)
+        if (meta["version"], meta["variant"], meta["case_study"], meta["model_ref"]) != (
+                sa_prep.CACHE_FORMAT_VERSION, name, family, "0"):
+            raise AssertionError(f"{path}: meta {meta}")
+    return rec
+
+
+@contextlib.contextmanager
+def caches_off():
+    """Both caches off, as a card-against-CPU comparison needs (the CPU side
+    would load the card's fits)."""
+    saved = {var: os.environ.get(var) for var in CACHE_VARS}
+    os.environ.update(dict.fromkeys(CACHE_VARS, "off"))
+    try:
+        yield
+    finally:
+        for var, value in saved.items():
+            if value is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = value
+
+
+def tensor_devices(obj, seen=None) -> set:
+    """The device types of every tensor and ``torch.device`` reachable from
+    ``obj`` through attributes, dicts, lists and tuples."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return set()
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return {obj.device.type}
+    if isinstance(obj, torch.device):
+        return {obj.type}
+    if isinstance(obj, dict):
+        children = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        children = list(obj)
+    elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+        children = list(vars(obj).values())
+    else:
+        return set()
+    return set().union(*(tensor_devices(c, seen) for c in children)) if children else set()
+
+
+def same_bytes(a, b) -> bool:
+    """Arrays (or tensors) equal in dtype, shape and every byte."""
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def warm_cache_check(family: str, spec, params, data, dev) -> dict:
+    """Run 0's ``SurpriseHandler`` and ``CoverageWorker`` on the (weights,
+    training set, taps) of ``test_prio``, against the caches it filled (the
+    ``TIP_ASSETS`` of its artifacts), in a process that fitted nothing:
+    per SA variant its cache outcome, setup seconds and whether its nominal
+    scores and SC-CAM order equal the artifacts byte for byte; the
+    training-set forward passes run; B2's launches; the coverage worker's
+    outcome and its statistics against a recompute; pc-mdsa's entry loaded
+    onto the CPU, its devices and its scores of ``CPU_ENTRY_ROWS`` rows
+    against the card's."""
+    (x_tr, _), (x_nom, _), _ = data
+    model = spec.model_factory()
+    handler = SurpriseHandler(model, params, list(spec.sa_activation_layers), x_tr, device=dev,
+                              dsa_badge_size=spec.dsa_badge_size, case_study=family,
+                              model_id=0)
+    train_passes = []
+    traces = handler._traces
+
+    def counting(dataset):
+        if dataset is x_tr:
+            train_passes.append(len(dataset))
+        return traces(dataset)
+
+    handler._traces = counting
+    zero_counters()
+    t0 = time.perf_counter()
+    results, chosen_k = handler.evaluate_all({"nominal": x_nom})
+    sa_s = time.perf_counter() - t0
+    report = {"family": family, "sa_s": sa_s, "chosen_k": chosen_k,
+              "train_forward_passes": len(train_passes),
+              "b2_launches": read_counters()["dsa_nearest"], "variants": {}}
+    for name, per_ds in results.items():
+        scores, order, times = per_ds["nominal"]
+        want = {kind: np.load(os.path.join(subdir("priorities"),
+                                           f"{family}_nominal_0_{name}_{kind}.npy"))
+                for kind in ("scores", "cam_order")}
+        report["variants"][name] = {
+            "outcome": handler.cache_outcomes[name], "setup_s": times[0],
+            "scores_equal": same_bytes(scores, want["scores"]),
+            "order_equal": same_bytes(order, want["cam_order"])}
+
+    base_model = BaseModel(model, params, activation_layers=list(spec.nc_activation_layers),
+                           batch_size=spec.prediction_badge_size, device=dev)
+    t0 = time.perf_counter()
+    worker = CoverageWorker(base_model, x_tr)
+    cov_s = time.perf_counter() - t0
+    with caches_off():
+        t0 = time.perf_counter()
+        fresh = CoverageWorker(base_model, x_tr)
+        recompute_s = time.perf_counter() - t0
+    report["coverage"] = {
+        "outcome": worker.stats_cache_outcome, "setup_s": cov_s, "recompute_s": recompute_s,
+        "nbc_setup_s": worker.setup_times["NBC_0"],
+        "stats_equal": all(same_bytes(a, b) for got, want in zip(worker.stats, fresh.stats)
+                           for a, b in zip(got, want))}
+
+    t0 = time.perf_counter()
+    on_cpu = handler.cache.load("pc-mdsa", device="cpu")
+    load_s = time.perf_counter() - t0
+    ats, preds = traces(x_nom[:CPU_ENTRY_ROWS])
+    card_scores = results["pc-mdsa"]["nominal"][0][:CPU_ENTRY_ROWS]
+    cpu_scores = on_cpu([a.cpu() for a in ats], preds)
+    report["cpu_entry"] = {"variant": "pc-mdsa", "load_s": load_s,
+                           "devices": sorted(tensor_devices(on_cpu)),
+                           "rows": CPU_ENTRY_ROWS, "rel_gap": _rel_gap(cpu_scores, card_scores)}
+    return report
+
+
+def warm_cache_verdict(report: dict) -> None:
+    """Raise unless the fresh process hit every SA variant and the coverage
+    statistics, fitted and walked the training set nowhere, reproduced
+    every artifact byte for byte, launched B2 from the loaded DSA, and
+    loaded an entry onto the CPU that scores as the card does (within
+    ``SA_RTOL``)."""
+    faults = []
+    for name, v in report["variants"].items():
+        if v["outcome"] != "hit":
+            faults.append(f"{name}: cache {v['outcome']}")
+        if not (v["scores_equal"] and v["order_equal"]):
+            faults.append(f"{name}: scores or SC-CAM order differ from the artifact")
+    if sorted(report["variants"]) != sorted(SA_NAMES):
+        faults.append(f"variants {sorted(report['variants'])}")
+    if report["train_forward_passes"]:
+        faults.append(f"{report['train_forward_passes']} training-set forward passes")
+    if not report["b2_launches"] > 0:
+        faults.append("B2 was not launched from the loaded DSA")
+    cov = report["coverage"]
+    if cov["outcome"] != "hit" or not cov["stats_equal"]:
+        faults.append(f"coverage statistics: {cov['outcome']}, equal {cov['stats_equal']}")
+    entry = report["cpu_entry"]
+    if entry["devices"] != ["cpu"] or not entry["rel_gap"] <= SA_RTOL:
+        faults.append(f"entry on the CPU: devices {entry['devices']}, gap {entry['rel_gap']}")
+    if faults:
+        raise AssertionError(f"warm cache, {report['family']}: " + "; ".join(faults))
+
+
+def warm_cache_main(family: str) -> int:
+    """The fresh interpreter's side of ``run_warm_cache``: the study and run
+    0's weights from the registry, the check's report as the last line."""
+    dev = resolve(None)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cs = base.get_case_study(family)
+    data = cs.spec.loader(device=dev)
+    report = warm_cache_check(family, cs.spec, params_from_jax(cs.load_params(0)), data, dev)
+    print(json.dumps(report))
+    return 0
+
+
+def run_warm_cache(family: str, root: str, cold_records: dict) -> dict:
+    """``warm_cache_check`` in a fresh interpreter (as a run scheduler
+    starts one) on phase 7's ``TIP_ASSETS``; checked by
+    ``warm_cache_verdict`` and printed beside phase 7's cold setup seconds."""
+    env = dict(os.environ, TIP_ASSETS=os.path.join(root, "train"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warm-cache", family],
+                          env=env, capture_output=True, text=True, timeout=WARM_CACHE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"warm cache, {family}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    report["process_s"] = time.perf_counter() - t0
+    report["cold_setup_s"] = {name: cold_records["nominal"][name][0] for name in SA_NAMES}
+    print(json.dumps({"warm_cache": report}))
+    warm_cache_verdict(report)
+    return report
+
+
+def check_disk_spill(family: str, params, data, dev, root: str) -> dict:
+    """A ``CoverageWorker`` with ``spill="disk"`` on phase 7's assets: every
+    metric's scores and CAM order on both sets byte-equal to phase 7's
+    artifacts (spilled in memory), and its temp directories gone."""
+    cfg = PATHS[family]
+    os.environ["TIP_ASSETS"] = os.path.join(root, "train")
+    base_model = BaseModel(cfg["model"](), params, activation_layers=cfg["nc"],
+                           batch_size=cfg["batch"], device=dev)
+    worker = CoverageWorker(base_model, data[0][0], spill="disk")
+    report = {"family": family, "stats_outcome": worker.stats_cache_outcome, "seconds": {}}
+    faults = []
+    for ds, (x, _) in (("nominal", data[1]), ("ood", data[2])):
+        t0 = time.perf_counter()
+        _, scores, orders = worker.evaluate_all(x, ds)
+        report["seconds"][ds] = time.perf_counter() - t0
+        for metric in NC_METRICS:
+            for kind, got in (("scores", scores[metric]), ("cam_order", orders[metric])):
+                want = np.load(os.path.join(subdir("priorities"),
+                                            f"{family}_{ds}_0_{metric}_{kind}.npy"))
+                if not same_bytes(got, want):
+                    faults.append(f"{ds} {metric} {kind}")
+        if os.path.exists(worker._temp_root()):
+            faults.append(f"{ds}: {worker._temp_root()} left behind")
+    report["metrics"] = len(NC_METRICS)
+    print(json.dumps({"disk_spill": report}))
+    if faults:
+        raise AssertionError(f"disk spill, {family}: differs from memory on " + ", ".join(faults))
+    return report
 
 
 def al_spec(data):
@@ -1819,11 +2167,18 @@ def run_active_learning(data, dev, root: str) -> dict:
     try:
         zero_counters()
         t0 = time.perf_counter()
-        [run] = run_cli("--phase", "active_learning", "--case-study", AL_FAMILY,
-                        "--runs", "0", *device_args(dev)).values()
+        with CacheRecorder() as recorder:
+            [run] = run_cli("--phase", "active_learning", "--case-study", AL_FAMILY,
+                            "--runs", "0", *device_args(dev)).values()
         seconds = time.perf_counter() - t0
     finally:
         base.CASE_STUDIES[AL_FAMILY] = full
+    # the AL base is cut (AL_TRAIN_ROWS), so its fingerprint is not test_prio's:
+    # both caches miss here by design
+    [sa_outcomes] = recorder.sa_outcomes
+    if sorted(sa_outcomes) != sorted(SA_NAMES) or len(recorder.cov_outcomes) != 1:
+        raise AssertionError(f"AL cache outcomes: SA {sa_outcomes}, "
+                             f"coverage {recorder.cov_outcomes}")
     phases, members = run.seconds, run.retrain_epochs
     launches = read_counters()
     for name in PATHS[AL_FAMILY]["kernels"]:
@@ -1854,6 +2209,7 @@ def run_active_learning(data, dev, root: str) -> dict:
         "member_epoch_s": [h[0]["seconds"] for h in members],
         "member_mean_loss": [h[0]["mean_loss"] for h in members],
         "launches": launches,
+        "cache_outcomes": {"sa": sa_outcomes, "coverage": recorder.cov_outcomes[0]},
         "reduced": {"epochs": "1 (registry 15)",
                     "train_rows": f"{AL_TRAIN_ROWS} of {PATHS[AL_FAMILY]['sizes'][0]}"},
         "settings": {"observed_share": AL_OBSERVED_SHARE, "num_selected": AL_NUM_SELECTED},
@@ -1861,8 +2217,8 @@ def run_active_learning(data, dev, root: str) -> dict:
                        for name, acc in accuracies.items()},
     }
     summary = {k: record[k] for k in ("family", "seconds", "phases_s", "retrain_mean_s",
-                                      "retrains", "steps_per_retrain", "launches", "reduced",
-                                      "settings")}
+                                      "retrains", "steps_per_retrain", "launches",
+                                      "cache_outcomes", "reduced", "settings")}
     print(json.dumps({"active_learning": summary}))
     print(json.dumps({"active_learning_table": {
         "columns": eval_active_learning_table.columns([AL_FAMILY]), "rows": row}}))
@@ -1905,9 +2261,11 @@ def compare_al_selections(params, data, dev) -> dict:
     (x_tr, _), (x_nom, y_nom), (x_ood, y_ood) = data
     datasets = eval_active_learning._shuffle_and_split_datasets(
         0, x_nom[:n_test], y_nom[:n_test], x_ood[:n_test], y_ood[:n_test], AL_OBSERVED_SHARE)
-    card, unc, nc_card, sa_card, card_s = al_selections(params, datasets, x_tr[:n_train], k, dev)
-    cpu, unc_cpu, nc_cpu, sa_cpu, cpu_s = al_selections(params, datasets, x_tr[:n_train], k,
-                                                        torch.device("cpu"))
+    with caches_off():
+        card, unc, nc_card, sa_card, card_s = al_selections(params, datasets, x_tr[:n_train],
+                                                            k, dev)
+        cpu, unc_cpu, nc_cpu, sa_cpu, cpu_s = al_selections(params, datasets, x_tr[:n_train],
+                                                            k, torch.device("cpu"))
     if list(card) != list(cpu):
         raise AssertionError("AL selections: card and CPU built other selections")
     moved, breaches = {}, []
@@ -2008,10 +2366,19 @@ def run_evaluation_and_check(root: str) -> dict:
     ``--phase check`` over the paths' assets: the two tables written, and
     each path's run 0 complete in the check's report."""
     os.environ["TIP_ASSETS"] = os.path.join(root, "train")
-    for which, table in (("test_prio", "apfds.csv"), ("active_learning", "active.csv")):
+    for which, tables in (("test_prio", ("apfds.csv", "apfd_paper_table.tex")),
+                          ("active_learning", ("active.csv", "active_paper_table.tex"))):
         run_cli("--phase", "evaluation", "--eval", which)
-        if not os.path.getsize(os.path.join(subdir("results"), table)):
-            raise AssertionError(f"evaluation {which}: {table} is empty")
+        for table in tables:
+            if not os.path.getsize(os.path.join(subdir("results"), table)):
+                raise AssertionError(f"evaluation {which}: {table} is empty")
+    statistics = {}
+    for which, prefix in (("test_prio_statistics", "apfd_correlation"),
+                          ("active_learning_statistics", "active_correlation")):
+        t0 = time.perf_counter()
+        run_cli("--phase", "evaluation", "--eval", which)
+        statistics[which] = {"seconds": time.perf_counter() - t0,
+                             **check_statistics_csvs(prefix)}
     from simple_tip_tpu_torch.utils import artifact_check
 
     report = {}
@@ -2029,18 +2396,38 @@ def run_evaluation_and_check(root: str) -> dict:
             raise AssertionError(f"check {family}: run 0 misses {missing}")
         report[family] = artifact_check.data_source(family)
     run_cli("--phase", "check")
-    print(json.dumps({"evaluation_and_check": report}))
+    print(json.dumps({"evaluation_and_check": report, "statistics": statistics}))
     return report
+
+
+def check_statistics_csvs(prefix: str) -> dict:
+    """``results/{prefix}_{p,eff}.csv``: the 39 x 39 grid under the human
+    labels on both axes; returns the tested (non-blank) cells of each."""
+    labels = human_approach_names(APPROACHES)
+    tested = {}
+    for suffix in ("p", "eff"):
+        path = os.path.join(subdir("results"), f"{prefix}_{suffix}.csv")
+        with open(path) as f:
+            rows = [line.rstrip("\n").split(",") for line in f]
+        if rows[0] != ["", *labels] or [r[0] for r in rows[1:]] != labels or any(
+                len(r) != len(labels) + 1 for r in rows):
+            raise AssertionError(f"{path} is not the 39 x 39 grid under the human labels")
+        tested[f"{suffix}_cells"] = sum(bool(c) for r in rows[1:] for c in r[1:])
+    return tested
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default=None, help="also write the full record as JSON here")
+    parser.add_argument("--warm-cache", default=None, metavar="FAMILY",
+                        help="(internal) the fresh-interpreter side of the cache phase")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    if args.warm_cache:
+        return warm_cache_main(args.warm_cache)
     dev = resolve(None)
     # Deterministic cuDNN algorithms: the trained weights, and with them the
     # card-against-CPU checks on them (SA fits near singular, DSA's near
@@ -2104,6 +2491,9 @@ def main() -> int:
 
         for family in PATHS:
             paths[family] = run_path(family, params[family], data[family], dev, root)
+        warm = {family: run_warm_cache(family, root, paths[family]["time_records"])
+                for family in WARM_CACHE_PATHS}
+        spill = check_disk_spill("imdb", params["imdb"], data["imdb"], dev, root)
         active = run_active_learning(data[AL_FAMILY], dev, root)
         al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev)
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
@@ -2141,7 +2531,8 @@ def main() -> int:
             json.dump({"gpu": smi, "build_s": build_s, "data": data_record,
                        "evaluation": evaluation, "kernels": kernels, "training": training,
                        "imdb_gradients": gradients, "wide_heads": wide, "classes": classes,
-                       "paths": paths, "active_learning": active, "al_selections": al_check,
+                       "paths": paths, "warm_cache": warm, "disk_spill": spill,
+                       "active_learning": active, "al_selections": al_check,
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,12 @@ The phases that run models (training, test_prio, active_learning,
 at_collection) run on the CUDA card unless ``--device cpu`` is given; with
 no card and no ``--device cpu`` the command fails before it reads or writes
 anything. There is no fallback to the CPU. ``evaluation`` and ``check`` read
-the artifact bus on the host. Worker processes (``--workers`` above 1) and
-the ``*_statistics`` evaluations are not ported yet and are refused.
+the artifact bus on the host: ``--eval test_prio`` and ``active_learning``
+write the two tables (CSV and the paper subset's LaTeX),
+``test_prio_statistics`` and ``active_learning_statistics`` the pairwise
+Wilcoxon and effect-size CSVs (their heatmaps are not ported). Worker
+processes (``--workers`` above 1, the JAX package's run scheduler) are not
+ported and are refused.
 """
 
 import argparse
@@ -59,6 +63,14 @@ def _run_eval(which: str, case_studies=ALL_CASE_STUDIES):
         from simple_tip_tpu_torch.plotters import eval_active_learning_table
 
         eval_active_learning_table.run(case_studies=case_studies)
+    elif which == "test_prio_statistics":
+        from simple_tip_tpu_torch.plotters import eval_apfd_correlation
+
+        eval_apfd_correlation.run(case_studies=case_studies)
+    elif which == "active_learning_statistics":
+        from simple_tip_tpu_torch.plotters import eval_active_correlation
+
+        eval_active_correlation.run(case_studies=case_studies)
     else:
         raise ValueError(f"Unknown eval type: {which}")
 
@@ -114,13 +126,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.phase == "evaluation":
-        which = args.eval or "test_prio"
-        if which.endswith("_statistics"):
-            print(f"--eval {which}: the statistics evaluations are not ported yet "
-                  "(no eval_apfd_correlation / eval_active_correlation in the port)",
-                  file=sys.stderr)
-            return 2
-        _run_eval(which)
+        _run_eval(args.eval or "test_prio")
         print("Done. Check your assets results folder for the reproduced result files.")
         return 0
 

@@ -23,8 +23,11 @@ The selections run on the port's ``BaseModel``, ``CoverageWorker`` and
 package's one-by-one route (``_retrain``: shuffle on the host, then one
 ``training_process`` call a retrain) is not ported: on an H100 it spent
 46-58 ms a retrain preparing what the ensemble prepares in 6 ms
-(``scripts/torch_al_retrain_routes.py``). Not ported either: the JAX
-package's SA fit cache (each SA variant is fitted here anew).
+(``scripts/torch_al_retrain_routes.py``). The SA selection runs against
+the SA fit cache keyed by ``case_study`` and ``model_id``, and the coverage
+selection against the coverage-statistics cache: where ``test_prio`` fitted
+the same (model, training set, taps), both load its fits instead of
+refitting. Not ported: the JAX package's SA fit pool and fit pipeline.
 """
 
 import logging
@@ -161,6 +164,8 @@ def evaluate(
         dsa_badge_size,
         device,
         sa_names,
+        case_study=case_study,
+        model_id=model_id,
     )
     selections.update(sa)
     clock.lap("sa_selection")
@@ -313,9 +318,12 @@ def _get_sa_selection(
     dsa_badge_size: Optional[int],
     device,
     sa_names: Sequence[str] = tuple(SA_VARIANTS),
+    case_study: Optional[str] = None,
+    model_id: Optional[int] = None,
 ) -> Tuple[MetricSelection, Scores]:
     """Selection by surprise-adequacy top-k and SC-CAM-first-k, and the
-    surprise values the top-k were taken from."""
+    surprise values the top-k were taken from. ``case_study`` and
+    ``model_id`` name the SA fit cache's entries, as in ``test_prio``."""
     res: MetricSelection = {}
     scores: Scores = {}
     sa_worker = SurpriseHandler(
@@ -326,6 +334,8 @@ def _get_sa_selection(
         device=device,
         dsa_badge_size=dsa_badge_size,
         sa_names=sa_names,
+        case_study=case_study,
+        model_id=model_id,
     )
     results, _ = sa_worker.evaluate_all(
         datasets={NOM: datasets[NOM, OBS][0], OOD: datasets[OOD, OBS][0]}

@@ -12,7 +12,6 @@ time record of the 39 approaches under the same naming contract
 
 import os
 import pickle
-import tempfile
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -23,6 +22,7 @@ from simple_tip_tpu_torch.device import DeviceLike, resolve, synchronize
 from simple_tip_tpu_torch.engine.coverage_handler import CoverageWorker
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.engine.surprise_handler import SA_VARIANTS, SurpriseHandler
+from simple_tip_tpu_torch.utils.artifacts_io import atomic_write_bytes
 
 
 def _persist(case_study: str, dataset_id: str, data_type: str, model_id: int, data):
@@ -39,16 +39,8 @@ def _persist_times(
     case_study: str, dataset_id: str, model_id: int, metric: str, data: List[float]
 ):
     """Pickle one ``[setup, pred, quant, cam]`` record, atomically."""
-    folder = subdir("times")
-    path = os.path.join(folder, f"{case_study}_{dataset_id}_{model_id}_{metric}")
-    fd, tmp = tempfile.mkstemp(dir=folder, prefix=".tmp-")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(pickle.dumps(data))
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
+    path = os.path.join(subdir("times"), f"{case_study}_{dataset_id}_{model_id}_{metric}")
+    atomic_write_bytes(path, pickle.dumps(data))
 
 
 def _persist_times_multiple_metrics(
@@ -193,6 +185,8 @@ def _eval_surprise(
         device=device,
         dsa_badge_size=dsa_badge_size,
         sa_names=sa_names,
+        case_study=case_study,
+        model_id=model_id,
     )
     results, chosen_k = sa_worker.evaluate_all(
         datasets={"nominal": nominal_test_dataset, "ood": ood_test_dataset}

@@ -178,10 +178,21 @@ class DSA:
         self.rows = (train - self.mean).contiguous()
         self.rows_sq = (self.rows * self.rows).sum(dim=1)
         self.train_labels = torch.as_tensor(labels, dtype=torch.int32, device=train.device)
+        self.badge_size = badge_size
+        self._set_layout()
+
+    def _set_layout(self) -> None:
         # the kernel's class-sorted copy of the rows (the CPU's plain search needs none)
         self.layout = (class_layout(self.rows, self.rows_sq, self.train_labels)
                        if self.rows.is_cuda else None)
-        self.badge_size = badge_size
+
+    def __getstate__(self) -> dict:
+        # the layout belongs to the device the rows lie on: rebuilt, not stored
+        return {k: v for k, v in self.__dict__.items() if k != "layout"}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._set_layout()
 
     def nearest(self, x: torch.Tensor, labels: torch.Tensor, want_same: bool,
                 queries=None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,8 +10,9 @@ approach with no results is "n.a." (and warned about, but for VR on
 cifar10, which has no dropout). ``run`` writes ``results/active.csv`` with
 the rows and columns of the JAX package's ``build_data_frame``. The table
 is a dict ``{(category, approach): {(cs, observed split, "split:part"):
-cell}}``, a cell None where the JAX frame holds NaN. The paper-subset
-LaTeX table is not ported.
+cell}}``, a cell None where the JAX frame holds NaN. ``run`` also writes the paper
+subset's future-split columns as ``results/active_paper_table.tex`` (the JAX
+package's pandas ``to_latex``, rendered by hand).
 """
 
 import csv
@@ -21,7 +22,14 @@ import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from simple_tip_tpu_torch.config import subdir
-from simple_tip_tpu_torch.plotters.utils import APPROACHES, _row, load_all_for_regex
+from simple_tip_tpu_torch.plotters.utils import (
+    APPROACHES,
+    PAPER_APPROACHES,
+    _row,
+    human_approach_name,
+    load_all_for_regex,
+    paper_latex_table,
+)
 
 BASELINE = "random"
 RANDOM = "random"
@@ -35,20 +43,23 @@ Row = Tuple[Optional[str], str]
 Table = Dict[Row, Dict[Tuple[str, str, str], Optional[str]]]
 
 
-def _load_approach(case_study: str, approach: str, ds_name: str) -> List[Accuracies]:
-    """The accuracy dicts of one approach's AL pickles, one per run."""
+def _load_approach(case_study: str, approach: str, ds_name: str):
+    """(accuracy dicts, run ids) of one approach's AL pickles, one per run."""
     pattern = re.compile(f"{re.escape(case_study)}_\\d*_{re.escape(approach)}_{ds_name}\\.")
-    return load_all_for_regex("active_learning", pattern)
+    values, names = load_all_for_regex("active_learning", pattern, with_names=True)
+    return values, [int(name.split("_")[1]) for name in names]
 
 
-def load_arrays_active_learning(case_study: str, ds_name: str) -> Dict[str, List[Accuracies]]:
+def load_arrays_active_learning(case_study: str, ds_name: str, by_id: bool = False) -> Dict:
     """Per approach, the runs' AL results for one (case study, observed
     split), the ``random`` baseline and the ``original`` model (whose
-    pickles carry the split 'na') included."""
+    pickles carry the split 'na') included: a list, or with ``by_id`` a
+    dict by run id."""
     res = {}
     for entry in [*APPROACHES, RANDOM, ("original", "na")]:
         approach, split = entry if isinstance(entry, tuple) else (entry, ds_name)
-        res[approach] = _load_approach(case_study, approach, split)
+        values, run_ids = _load_approach(case_study, approach, split)
+        res[approach] = dict(zip(run_ids, values)) if by_id else values
     return res
 
 
@@ -128,10 +139,28 @@ def write_csv(table: Table, case_studies: Sequence[str], path: str) -> None:
                          + ["" if v is None else v for v in values])
 
 
+def write_latex(table: Table, case_studies: Sequence[str], path: str) -> None:
+    """The paper subset (its approaches, ``original`` and ``random``) on the
+    future-split columns of each observed split, as LaTeX (``latex_table``
+    of the JAX package, byte for byte)."""
+    keep = [*PAPER_APPROACHES, "original", "random"]
+    paper_columns = [c for c in columns(case_studies)
+                     if c[2].startswith(c[1]) and c[2].endswith("future")]
+    rows = [row for row in table if row[1] in keep]
+    named = {row: (human_approach_name(row[0]), human_approach_name(row[1])) for row in rows}
+    text = {(named[row], c): "NaN" if table[row][c] is None else table[row][c]
+            for row in rows for c in paper_columns}
+    with open(path, "w") as f:
+        f.write(paper_latex_table([named[r] for r in rows], paper_columns, text, "llcccccccc"))
+
+
 def run(case_studies: List[str] = ("mnist", "fmnist", "cifar10", "imdb")) -> Table:
-    """Build the table from the bus and write ``results/active.csv``."""
+    """Build the table from the bus and write ``results/active.csv`` and
+    ``results/active_paper_table.tex``."""
     table = active_learning_table(list(case_studies))
     write_csv(table, list(case_studies), os.path.join(subdir("results"), "active.csv"))
+    write_latex(table, list(case_studies), os.path.join(subdir("results"),
+                                                        "active_paper_table.tex"))
     return table
 
 

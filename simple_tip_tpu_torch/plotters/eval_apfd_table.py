@@ -6,10 +6,11 @@ the scores ``..._{approach}_scores`` and the CAM orders
 ``..._{approach}_cam_order``), orders each (approach, run) by descending
 score or takes its CAM order as written, scores APFD, averages the first 100
 runs, adds the reported times of the first ten runs, and writes
-``results/apfds.csv``. The table is a dict ``{(category, approach): {(cs,
-column): value}}`` with the columns ``nominal``, ``ood`` (mean APFD, or
-"n.a.") and ``time`` (a string such as "12s", or None). The JAX package's
-paper-subset LaTeX table is not ported.
+``results/apfds.csv`` and the paper subset as ``results/apfd_paper_table.tex``
+(the JAX package's pandas ``to_latex``, rendered by hand). The table is a
+dict ``{(category, approach): {(cs, column): value}}`` with the columns
+``nominal``, ``ood`` (mean APFD, or "n.a.") and ``time`` (a string such as
+"12s", or None).
 """
 
 import csv
@@ -23,7 +24,13 @@ import numpy as np
 from simple_tip_tpu_torch.config import output_folder, subdir
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.plotters import times_collector
-from simple_tip_tpu_torch.plotters.utils import APPROACHES, _row
+from simple_tip_tpu_torch.plotters.utils import (
+    APPROACHES,
+    PAPER_APPROACHES,
+    _row,
+    human_approach_name,
+    paper_latex_table,
+)
 
 TIME_COL = "time"
 COLUMNS = ("nominal", "ood", TIME_COL)
@@ -147,11 +154,36 @@ def write_csv(table: Table, case_studies: Sequence[str], path: str) -> None:
             out.writerow([cat, approach] + ["" if v is None else v for v in values])
 
 
+def _latex_cell(value) -> str:
+    """A cell as the JAX package's ``to_latex`` prints it: an APFD as a
+    percentage with its ``\\%``, NaN for no value, text as it is."""
+    if value is None or (isinstance(value, float) and np.isnan(value)):
+        return "NaN"
+    if isinstance(value, float):
+        return f"{value:.2%}".replace("%", r"\%")
+    return str(value)
+
+
+def write_latex(table: Table, case_studies: Sequence[str], path: str) -> None:
+    """The paper subset of the table as LaTeX (``_plot_latex_table`` of the
+    JAX package, byte for byte)."""
+    columns = [(cs, c) for cs in case_studies for c in COLUMNS]
+    rows = [row for row in table if row[1] in PAPER_APPROACHES]
+    named = {row: (human_approach_name(row[0]), human_approach_name(row[1])) for row in rows}
+    text = {(named[row], c): _latex_cell(table[row][c]) for row in rows for c in columns}
+    with open(path, "w") as f:
+        f.write(paper_latex_table([named[r] for r in rows], columns, text,
+                                  "llcccccccccccc"))
+
+
 def run(case_studies: List[str] = ("mnist", "fmnist", "cifar10", "imdb")) -> Table:
-    """Build the table from the bus and write ``results/apfds.csv``."""
+    """Build the table from the bus and write ``results/apfds.csv`` and
+    ``results/apfd_paper_table.tex``."""
     table = apfd_table(list(case_studies))
     add_reported_times(table, times_collector.load_times())
     write_csv(table, list(case_studies), os.path.join(subdir("results"), "apfds.csv"))
+    write_latex(table, list(case_studies), os.path.join(subdir("results"),
+                                                        "apfd_paper_table.tex"))
     return table
 
 

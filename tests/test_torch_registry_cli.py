@@ -15,8 +15,10 @@ on the CPU.
   standard: masks, coverage scores and CAM orders byte-equal, uncertainties
   within atol 1e-5, DSA within rtol 1e-4, VR by dtype, shape and range.
 - With no card and no ``--device``, a model phase exits non-zero and
-  writes nothing; ``--workers 2`` and the statistics evaluations are
-  refused with a message naming what is missing.
+  writes nothing; ``--workers 2`` is refused with a message naming what is
+  missing; the two statistics evaluations run on the host and write their
+  CSVs (``tests/test_torch_statistics.py`` holds their bytes to the JAX
+  package's).
 """
 
 import dataclasses
@@ -206,15 +208,22 @@ def test_no_card_and_no_device_writes_nothing(study_dirs, monkeypatch, capsys):
 @pytest.mark.parametrize("argv, missing", [
     (["--phase", "test_prio", "--case-study", "mnist", "--workers", "2", "--device", "cpu"],
      "worker processes"),
-    (["--phase", "evaluation", "--eval", "test_prio_statistics"], "statistics evaluations"),
-    (["--phase", "evaluation", "--eval", "active_learning_statistics"],
-     "statistics evaluations"),
 ])
 def test_unported_options_are_refused(study_dirs, capsys, argv, missing):
     _, assets = study_dirs
     assert cli.main(argv) == 2
     assert missing in capsys.readouterr().err
     assert not os.path.exists(assets)
+
+
+@pytest.mark.parametrize("which, prefix", [("test_prio_statistics", "apfd_correlation"),
+                                           ("active_learning_statistics",
+                                            "active_correlation")])
+def test_statistics_evaluations_run_on_the_host(study_dirs, which, prefix):
+    _, assets = study_dirs
+    assert cli.main(["--phase", "evaluation", "--eval", which]) == 0
+    assert sorted(os.listdir(os.path.join(assets, "results"))) == [
+        f"{prefix}_eff.csv", f"{prefix}_p.csv"]
 
 
 def test_help_imports_without_a_card(capsys):
