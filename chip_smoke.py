@@ -124,6 +124,26 @@ Needs one CUDA card; exits non-zero without one (and without the
    ``CoverageWorker`` with ``spill="disk"``: its 12 metrics' scores and CAM
    orders on both sets byte-equal to the artifacts, its spill directories
    removed;
+7b. the fused and grouped chain (``engine/run_program.py``): (a) for MNIST
+   and IMDB, ``TIP_FUSED_CHAIN=1 cli.main(["--phase", "test_prio", ...])``
+   of run 0 at full size in a fresh ``TIP_ASSETS`` holding the
+   checkpoints, both caches pointed at phase 7's (every SA variant a hit),
+   the counters read around it: CAM orders, coverage scores, VR and SA
+   byte-equal to phase 7's artifacts, ``is_misclassified`` equal but on
+   rows whose two largest probabilities lie within 1e-5 (counted: phase 7
+   predicts MNIST through B1, the chain through the module), the other
+   uncertainties within 1e-5; its phase seconds printed beside phase 7's
+   fault predictors and coverage, the chain's and the ranks' seconds
+   apart; (b) for each family, on one full badge (512 rows) of the nominal
+   set, the chain program (a CUDA graph) against the eager chain on the
+   card, every output byte-equal, and the badge with rows 300 on as
+   padding (those rows' words zero, the others the full badge's), both
+   timed; (c) ``GroupChainRunner`` over MNIST runs 0 and 1 at G=2 and at
+   G=3 (a padded third member) on **the first 2,048 rows of the nominal
+   and of the OOD set**: each member's result (VR and a top-100 AL select
+   included) byte-equal to ``FusedChainRunner``'s for its run, one group
+   dispatch per badge; the kernels line gives B4's launches in the fused
+   IMDB run (``fused_chain_launches``);
 8. per path, the slice with DSA on a small subset on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
@@ -227,8 +247,13 @@ from simple_tip_tpu_torch.engine import (
     eval_prioritization,
     sa_prep,
 )
-from simple_tip_tpu_torch.engine.coverage_handler import CoverageWorker
+from simple_tip_tpu_torch.engine.coverage_handler import PROFILE_BADGE_SIZE, CoverageWorker
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
+from simple_tip_tpu_torch.engine.run_program import (
+    FusedChainRunner,
+    GroupChainRunner,
+    badge_layout,
+)
 from simple_tip_tpu_torch.engine.sa_prep import SharedTrainPrep, VariantFitter
 from simple_tip_tpu_torch.engine.surprise_handler import (
     SA_VARIANTS,
@@ -300,20 +325,21 @@ PATHS = {
         model=MnistConvNet, sizes=(60_000, 10_000, 20_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=128,
         neurons=26 * 26 * 32 + 13 * 13 * 32 + 11 * 11 * 64 + 5 * 5 * 64,
-        kernels=("fused_mnist_forward", "dsa_nearest"),
+        kernels=("fused_mnist_forward", "dsa_nearest"), chain_kernels=("dsa_nearest",),
         train_batch=128, runs=[0, 1], classes=10, train_kernels=(),
     ),
     "cifar10": dict(
         model=Cifar10ConvNet, sizes=(50_000, 10_000, 20_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=32,
         neurons=30 * 30 * 32 + 15 * 15 * 32 + 13 * 13 * 64 + 6 * 6 * 64,
-        kernels=("fused_cifar10_forward", "dsa_nearest"),
+        kernels=("fused_cifar10_forward", "dsa_nearest"), chain_kernels=("dsa_nearest",),
         train_batch=32, runs=[0], classes=10, train_kernels=(),
     ),
     "imdb": dict(
         model=ImdbTransformer, sizes=(25_000, 25_000, 50_000), nc=[3, 5], sa=[5],
         dsa_badge=500, batch=600, neurons=32 + 20,
         kernels=("flash_attention_fwd", "dsa_nearest"),
+        chain_kernels=("flash_attention_fwd", "dsa_nearest"),
         train_batch=32, runs=[0], classes=2,
         train_kernels=("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
     ),
@@ -385,6 +411,23 @@ THRESHOLDED_KINDS = ("canny_edges", "spatter", "snow")
 TEXTS = 2_000
 DICTIONARY = 4_000
 LEV_CHECK_WORDS = 1_000
+# The fused and grouped chain (``TIP_FUSED_CHAIN``, ``TIP_CHAIN_GROUP``):
+# the paths run through the command line with the chain on; the tolerances
+# of its artifacts against the per-phase route's (uncertainties, and the
+# gap of the two largest probabilities under which a prediction may flip:
+# the per-phase route predicts MNIST through B1, the chain through the
+# module); the rows from which the graph check's badge is padding, its
+# timing repetitions; the group check's family, rows per set (cut from the
+# full sets), group sizes (G=3 pads a third member) and AL select size.
+CHAIN_PATHS = ("mnist", "imdb")
+CHAIN_UNCERTAINTY_ATOL = 1e-5
+CHAIN_TIE_GAP = 1e-5
+CHAIN_PAD_VALID = 300
+CHAIN_REPS = 20
+CHAIN_GROUP_FAMILY = "mnist"
+CHAIN_GROUP_ROWS = 2_048
+CHAIN_GROUP_SIZES = (2, 3)
+CHAIN_SELECT_K = 100
 COUNTERS = {
     "fused_mnist_forward": (fused_forward, "LAUNCHES"),
     "fused_cifar10_forward": (fused_forward, "CIFAR_LAUNCHES"),
@@ -2119,6 +2162,231 @@ def check_disk_spill(family: str, params, data, dev, root: str) -> dict:
     return report
 
 
+# -- the fused and grouped chain route (phase 8 of the docstring) ---------------
+
+def tree_faults(got, want, path: str = "") -> list:
+    """The paths at which two nests (dicts, lists, tuples) of tensors or
+    arrays differ in dtype, shape or any byte; numbers compare equal or not."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path}: keys {sorted(map(str, got))} != {sorted(map(str, want))}"]
+        return [f for k in want for f in tree_faults(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{path}: {len(got)} items != {len(want)}"]
+        return [f for i, (g, w) in enumerate(zip(got, want))
+                for f in tree_faults(g, w, f"{path}/{i}")]
+    if isinstance(want, (torch.Tensor, np.ndarray)):
+        return [] if same_bytes(got, want) else [path or "/"]
+    return [] if got == want else [f"{path}: {got!r} != {want!r}"]
+
+
+def clone_tree(tree):
+    """Host copies of every tensor in a nest (a graph's outputs are
+    overwritten by its next replay)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.cpu().numpy().copy() if isinstance(tree, torch.Tensor) else tree
+
+
+def padding_faults(cov: dict, valid: int, full: dict) -> list:
+    """A chain's packed profiles on a badge whose rows from ``valid`` on are
+    padding: those rows all zero, the rows before them the full badge's."""
+    faults = []
+    for mid, (_, packed) in cov.items():
+        if np.any(packed[valid:]):
+            faults.append(f"{mid}: padding rows hold set bits")
+        if not same_bytes(packed[:valid], full[mid][1][:valid]):
+            faults.append(f"{mid}: valid rows differ from the unpadded badge")
+    return faults
+
+
+def member_faults(results: list, refs: list) -> list:
+    """Each group member's result against its own ``FusedChainRunner``
+    result, byte for byte (timing records aside)."""
+    if len(results) != len(refs):
+        return [f"{len(results)} member results for {len(refs)} runs"]
+    faults = []
+    for g, (got, want) in enumerate(zip(results, refs)):
+        keys = [k for k in want if not k.endswith("_times")]
+        faults += tree_faults({k: got.get(k) for k in keys}, {k: want[k] for k in keys},
+                              f"member {g}")
+    return faults
+
+
+def top2_gap(probs: np.ndarray) -> np.ndarray:
+    """Per row, the largest probability less the second largest."""
+    top = np.sort(probs, axis=1)
+    return top[:, -1] - top[:, -2]
+
+
+def fused_against_per_phase(fused: dict, per_phase: dict, gaps: dict) -> dict:
+    """The fused route's artifacts against the per-phase route's of one
+    run: CAM orders, coverage scores, VR and SA byte-equal; the other
+    uncertainties within ``CHAIN_UNCERTAINTY_ATOL``; ``is_misclassified``
+    equal but on rows whose two largest probabilities lie within
+    ``CHAIN_TIE_GAP`` (``gaps[ds]``: the per-phase probabilities' gap per
+    row; the per-phase route predicts through B1 on MNIST, the chain
+    through the module), which are counted. Raises on any other
+    difference; returns the counts and the largest uncertainty gaps."""
+    if set(fused) != set(per_phase):
+        raise AssertionError(f"fused route artifacts {sorted(set(fused) ^ set(per_phase))} "
+                             "are not the per-phase route's")
+    faults, near_tie, unc_gap = [], {}, {}
+    for (ds, suffix), want in per_phase.items():
+        got = fused[(ds, suffix)]
+        if suffix == "is_misclassified":
+            rows = np.flatnonzero(got != want)
+            far = rows[gaps[ds][rows] > CHAIN_TIE_GAP]
+            if far.size:
+                faults.append(f"{ds} is_misclassified differs on {far.size} rows that are "
+                              f"no near tie (first {far[:5].tolist()})")
+            near_tie[ds] = int(rows.size)
+        elif suffix.startswith("uncertainty_") and suffix != "uncertainty_VR":
+            gap = float(np.abs(got.astype(np.float64) - want).max())
+            unc_gap[f"{ds} {suffix}"] = gap
+            if got.dtype != want.dtype or got.shape != want.shape or gap > CHAIN_UNCERTAINTY_ATOL:
+                faults.append(f"{ds} {suffix}: {got.dtype}{got.shape} off by {gap}")
+        elif not same_bytes(got, want):
+            faults.append(f"{ds} {suffix}")
+    if faults:
+        raise AssertionError("fused route against per-phase: " + "; ".join(faults))
+    return {"misclassified_near_tie": near_tie, "uncertainty_max_abs": unc_gap}
+
+
+def chain_seconds(records: dict) -> dict:
+    """The chain's and the ranks' seconds (both sets) from the fused route's
+    time records: the chain's in every record's pred slot, the ranks' in the
+    coverage records' cam slots."""
+    return {"chain_s": sum(records[ds]["softmax"][1] for ds in records),
+            "rank_s": sum(records[ds][m][3] for ds in records for m in NC_METRICS)}
+
+
+def run_fused_path(family: str, params, data, dev, root: str, per_phase_s: dict) -> dict:
+    """(a) ``TIP_FUSED_CHAIN=1 cli.main --phase test_prio`` of run 0 at full
+    size in a fresh ``TIP_ASSETS`` holding the checkpoints, both caches
+    pointed at phase 7's (so SA is a load), the counters read around it;
+    every artifact against phase 7's (``fused_against_per_phase``)."""
+    src, dst = os.path.join(root, "train"), os.path.join(root, f"{family}_fused")
+    shutil.copytree(os.path.join(src, "models", family), os.path.join(dst, "models", family))
+    env = {"TIP_ASSETS": dst, "TIP_FUSED_CHAIN": "1",
+           "TIP_SA_CACHE_DIR": os.path.join(src, "sa_fit_cache"),
+           "TIP_COV_STATS_CACHE_DIR": os.path.join(src, "coverage_stats_cache")}
+    saved = {var: os.environ.get(var) for var in env}
+    os.environ.update(env)
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        with CacheRecorder() as recorder:
+            [(phases, _)] = run_cli("--phase", "test_prio", "--case-study", family,
+                                    "--runs", "0", *device_args(dev)).values()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+        rows = {"nominal": len(data[1][1]), "ood": len(data[2][1])}
+        fused, records = read_artifacts(family, rows)
+    finally:
+        for var, value in saved.items():
+            if value is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = value
+    if any(o != "hit" for outcomes in recorder.sa_outcomes for o in outcomes.values()):
+        raise AssertionError(f"{family} fused: SA was not a load ({recorder.sa_outcomes})")
+    os.environ["TIP_ASSETS"] = src
+    per_phase, _ = read_artifacts(family, rows)
+    model = BaseModel(PATHS[family]["model"](), params, device=dev)
+    gaps = {ds: top2_gap(predict(model.net, model.fused, x, dev).cpu().numpy())
+            for ds, (x, _) in (("nominal", data[1]), ("ood", data[2]))}
+    report = fused_against_per_phase(fused, per_phase, gaps)
+    for name in PATHS[family]["chain_kernels"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the fused {family} path")
+    record = {"fused_path": family, "slice_s": seconds, "phases_s": phases,
+              **chain_seconds(records), "per_phase_s": per_phase_s,
+              "per_phase_fp_nc_s": per_phase_s["fault_predictors"] + per_phase_s["neuron_coverage"],
+              "launches": launches, "sa_outcomes": recorder.sa_outcomes, **report}
+    print(json.dumps(record))
+    return record
+
+
+def check_graph_vs_eager(family: str, params, data, dev) -> dict:
+    """(b) The chain program (a CUDA graph) against the eager chain on the
+    card, on one full badge of real inputs: every output byte-equal; then
+    the badge with its rows from ``CHAIN_PAD_VALID`` on masked as padding
+    (``padding_faults``); both timed per badge."""
+    cfg = PATHS[family]
+    runner = FusedChainRunner(cfg["model"](), params, data[0][0], cfg["nc"],
+                              batch_size=cfg["batch"], device=dev)
+    x = data[1][0][:runner.badge_size]
+    xs = to_device(x, dev)
+    prog = runner.chain_program(*badge_layout(x, runner.badge_size, dev))
+    _, x_buf, valid = prog.args
+    x_buf.copy_(xs)
+    valid.fill_(xs.shape[0])
+    graph_out = clone_tree(prog())
+    with torch.no_grad():
+        eager_out = clone_tree(prog.fn(*prog.args))
+    faults = tree_faults(graph_out, eager_out)
+    valid.fill_(CHAIN_PAD_VALID)
+    faults += padding_faults(clone_tree(prog())[2], CHAIN_PAD_VALID, graph_out[2])
+    valid.fill_(xs.shape[0])
+
+    def eager():
+        with torch.no_grad():
+            prog.fn(*prog.args)
+
+    record = {"graph_vs_eager": family, "badge": list(xs.shape), "graph": prog.graph is not None,
+              "faults": faults, "graph_ms": cuda_ms(prog, CHAIN_REPS),
+              "eager_ms": cuda_ms(eager, CHAIN_REPS), "eager_host_ms": host_ms(eager, CHAIN_REPS)}
+    print(json.dumps(record))
+    if faults or (dev.type == "cuda" and prog.graph is None):
+        raise AssertionError(f"{family}: the chain graph differs from the eager chain: {faults}")
+    return record
+
+
+def check_group_runner(params_by_run: dict, data, dev) -> dict:
+    """(c) ``GroupChainRunner`` over MNIST runs 0 and 1 at G=2 and at G=3
+    (a padded third member) on the first ``CHAIN_GROUP_ROWS`` rows of the
+    nominal and OOD sets: each member's result byte-equal to
+    ``FusedChainRunner``'s for its run (``member_faults``), one group
+    dispatch per badge."""
+    cfg = PATHS[CHAIN_GROUP_FAMILY]
+    runs = sorted(params_by_run)
+    sets = {"nominal": data[1][0][:CHAIN_GROUP_ROWS], "ood": data[2][0][:CHAIN_GROUP_ROWS]}
+    common = dict(training_set=data[0][0], nc_layers=cfg["nc"], batch_size=cfg["batch"],
+                  device=dev)
+    t0 = time.perf_counter()
+    refs = {}
+    for run in runs:
+        runner = FusedChainRunner(cfg["model"](), params_by_run[run], **common)
+        refs[run] = {ds: runner.evaluate_dataset(x, seed=run, select_k=CHAIN_SELECT_K)
+                     for ds, x in sets.items()}
+    record = {"group_runner": CHAIN_GROUP_FAMILY, "rows": CHAIN_GROUP_ROWS, "runs": runs,
+              "per_model_s": time.perf_counter() - t0, "groups": {}}
+    badges = sum(-(-len(x) // PROFILE_BADGE_SIZE) for x in sets.values())
+    faults = []
+    for g in CHAIN_GROUP_SIZES:
+        t0 = time.perf_counter()
+        group = GroupChainRunner(cfg["model"](), [params_by_run[r] for r in runs],
+                                 group_size=g, **common)
+        for ds, x in sets.items():
+            results = group.evaluate_dataset(x, seeds=runs, select_k=CHAIN_SELECT_K)
+            faults += [f"G={g} {ds} {f}"
+                       for f in member_faults(results, [refs[r][ds] for r in runs])]
+        if group.group_chain_dispatches != badges:
+            faults.append(f"G={g}: {group.group_chain_dispatches} group dispatches "
+                          f"for {badges} badges")
+        record["groups"][g] = {"seconds": time.perf_counter() - t0,
+                               "dispatches": group.group_chain_dispatches}
+    record["faults"] = faults
+    print(json.dumps(record))
+    if faults:
+        raise AssertionError("group runner against the per-model runner: " + "; ".join(faults))
+    return record
+
+
 def al_spec(data):
     """MNIST's registry study for the AL phase: one-epoch retrains and the
     registry's AL settings (checked), its training base cut to the first
@@ -2494,6 +2762,20 @@ def main() -> int:
         warm = {family: run_warm_cache(family, root, paths[family]["time_records"])
                 for family in WARM_CACHE_PATHS}
         spill = check_disk_spill("imdb", params["imdb"], data["imdb"], dev, root)
+        t0 = time.perf_counter()
+        fused = {family: run_fused_path(family, params[family], data[family], dev, root,
+                                        paths[family]["phases_s"])
+                 for family in CHAIN_PATHS}
+        graph_eager = {family: check_graph_vs_eager(family, params[family], data[family], dev)
+                       for family in PATHS}
+        os.environ["TIP_ASSETS"] = os.path.join(root, "train")
+        group_cs = CaseStudy(registry_spec(CHAIN_GROUP_FAMILY))
+        group = check_group_runner(
+            {run: params_from_jax(group_cs.load_params(run))
+             for run in PATHS[CHAIN_GROUP_FAMILY]["runs"]},
+            data[CHAIN_GROUP_FAMILY], dev)
+        chain_phase_s = time.perf_counter() - t0
+        print(json.dumps({"chain_phase_s": chain_phase_s, "gpu": smi}))
         active = run_active_learning(data[AL_FAMILY], dev, root)
         al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev)
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
@@ -2504,6 +2786,8 @@ def main() -> int:
                       "paths_s": {f: p["slice_s"] for f, p in paths.items()},
                       "total_s": sum(p["slice_s"] for p in paths.values()),
                       "active_learning_s": active["seconds"],
+                      "fused_paths_s": {f: r["slice_s"] for f, r in fused.items()},
+                      "chain_phase_s": chain_phase_s,
                       "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
                       "command_s": time.perf_counter() - START}))
 
@@ -2519,6 +2803,7 @@ def main() -> int:
             k["launches"] = sum(launches_by_path(k["name"]).values())
             if k["name"] == "flash_attention_fwd":
                 k["training_launches"] = train_launches[k["name"]]
+                k["fused_chain_launches"] = fused["imdb"]["launches"][k["name"]]
         if k["name"] in PATHS[AL_FAMILY]["kernels"]:
             k["al_launches"] = active["launches"][k["name"]]
     b2 = dsa_nearest_entry(dsa_by_path, launches_by_path("dsa_nearest"))
@@ -2533,6 +2818,8 @@ def main() -> int:
                        "imdb_gradients": gradients, "wide_heads": wide, "classes": classes,
                        "paths": paths, "warm_cache": warm, "disk_spill": spill,
                        "active_learning": active, "al_selections": al_check,
+                       "fused_chain": {"paths": fused, "graph_vs_eager": graph_eager,
+                                       "group_runner": group},
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ transformer, training (``models/train.py``, ``parallel/ensemble.py``,
 and the per-phase ``test_prio`` route: predictions and uncertainties, the 12
 neuron-coverage metrics with their CAM orders, and the five surprise-adequacy
 variants with their surprise-coverage CAM orders (all 39 approaches), plus
-the APFD table over them (``plotters/``). It imports torch, numpy and scipy
+the APFD table over them (``plotters/``); and the fused route of
+``test_prio`` (``TIP_FUSED_CHAIN``, ``TIP_CHAIN_GROUP``: one chain program a
+badge, a CUDA graph on the card, ``engine/run_program.py``). It imports torch, numpy and scipy
 only, never jax, flax or anything of ``simple_tip_tpu``.
 
 Every Pallas kernel of the JAX package has a hand-written CUDA counterpart

@@ -9,7 +9,8 @@ Counterpart of the JAX package's ``casestudies/base.py`` ``CaseStudy``:
 - ``train`` trains the missing runs through one ``train_ensemble`` (one
   card, members in turn);
 - ``run_prio_eval`` runs ``engine/eval_prioritization.evaluate`` per run
-  (the per-phase route: no worker processes, no grouped chain yet);
+  (no worker processes), or, with ``TIP_FUSED_CHAIN`` on and
+  ``TIP_CHAIN_GROUP`` above 1, ``evaluate_group`` over groups of G runs;
 - ``run_active_learning_eval`` runs ``engine/eval_active_learning.evaluate``
   per run, its retrains through ``parallel/al_ensemble.py``;
 - ``collect_activations`` dumps every tap (``engine/activation_persistor.py``,
@@ -41,6 +42,7 @@ from simple_tip_tpu_torch.engine import (
     eval_active_learning,
     eval_prioritization,
 )
+from simple_tip_tpu_torch.engine.run_program import chain_group_size, fused_chain_enabled
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
 from simple_tip_tpu_torch.models.train import TrainConfig, accuracy
 from simple_tip_tpu_torch.parallel.al_ensemble import al_retrain_ensemble
@@ -133,9 +135,33 @@ class CaseStudy:
 
     def run_prio_eval(self, model_ids: List[int], device: DeviceLike = None) -> Dict[int, tuple]:
         """Run the test-prioritization phase for the requested runs; returns
-        each run's ``(phase seconds, {SA variant: the k it chose})``."""
+        each run's ``(phase seconds, {SA variant: the k it chose})``. With the
+        fused chain on and ``TIP_CHAIN_GROUP`` G above 1, the runs are scored
+        in groups of G (``eval_prioritization.evaluate_group``; the same
+        artifacts as the per-model walk)."""
         device = resolve(device)
         (x_train, _), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
+        group_size = chain_group_size() if fused_chain_enabled() else 1
+        if group_size > 1 and len(model_ids) > 1:
+            logger.info("[%s] grouped prioritization eval for runs %s (G=%d)",
+                        self.spec.name, list(model_ids), group_size)
+            return eval_prioritization.evaluate_group(
+                model_ids=list(model_ids),
+                case_study=self.spec.name,
+                model_def=self.model_def,
+                params_loader=lambda model_id: params_from_jax(self.load_params(model_id)),
+                training_dataset=x_train,
+                nominal_test_dataset=x_test,
+                nominal_test_labels=y_test,
+                ood_test_dataset=ood_x,
+                ood_test_labels=ood_y,
+                nc_activation_layers=list(self.spec.nc_activation_layers),
+                sa_activation_layers=list(self.spec.sa_activation_layers),
+                dsa_badge_size=self.spec.dsa_badge_size,
+                batch_size=self.spec.prediction_badge_size,
+                group_size=group_size,
+                device=device,
+            )
         phases = {}
         for model_id in model_ids:
             params = params_from_jax(self.load_params(model_id))

@@ -1,1 +1,1 @@
-"""Experiment engine of the port: the per-phase ``test_prio`` route."""
+"""Experiment engine of the port: the per-phase and fused ``test_prio`` routes."""
