@@ -144,6 +144,32 @@ Needs one CUDA card; exits non-zero without one (and without the
    included) byte-equal to ``FusedChainRunner``'s for its run, one group
    dispatch per badge; the kernels line gives B4's launches in the fused
    IMDB run (``fused_chain_launches``);
+7c. the online scoring service (``serving/``): one ``FusedChainExecutor``
+   with MNIST and IMDB registered (run 0's trained weights, the full
+   training sets, both caches phase 7's, so the coverage statistics are a
+   load; badge 512), each engine over it serving both as tenants. The
+   capacity probe times two warm 512-row badges a family (badge ms,
+   rows/s); the full nominal sets (10,000 / 25,000 rows) are cut into
+   seeded requests of 1-700 rows, and the badges these pack into when the
+   queue is deep are counted (chunks never split: a fill of ~0.7); the
+   rates' base is the rows a second of each tenant, both at once, that keep
+   the card busy at those badge times and badges. Both tenants are driven
+   open-loop (``drive``) at 0.5x, 1.0x and 2.0x of it, each rate on an
+   engine of its own (flush deadline 25 ms; at 2.0x a queue bound of 2
+   badges). Checks: every answer byte-equal to the offline walk of the
+   same rows (``FusedChainRunner.score_dataset``: pred, uncertainties, the
+   12 coverage scores); no shed and no error at 0.5x and 1.0x; at 2.0x
+   sheds, ``serving.shed`` equal to the loadgen's count, and a request
+   served after the burst; IMDB's badges ride between MNIST's (the fair
+   rotation); B4's launches over the traffic equal IMDB's badges times the
+   launches its graph records a replay (``serving_launches`` on the kernels
+   line). Then MNIST run 1's weights are registered as a third tenant
+   (another program, so a capture) while the loop thread serves 2,000 rows
+   of run 0 at 2,000 rows/s: no error, no shed, every answer byte-equal,
+   and the new tenant's first answer byte-equal to its own walk. Prints per
+   rate and family the sustained inputs/s, p50/p95/p99 ms, mean badge
+   fill, badges, sheds and errors; register seconds, badge ms and the
+   phase's seconds;
 8. per path, the slice with DSA on a small subset on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
@@ -155,11 +181,13 @@ Needs one CUDA card; exits non-zero without one (and without the
    rungs, the same +inf rows, finite scores (and pc-lsa's log densities
    before the exp) within rtol 1e-3, SC-CAM orders equal in all but 5% of
    their positions; on MNIST and CIFAR-10 pc-mlsa is also read at full
-   width on one class's rows (``mlsa_full_width``: finite scores and the
+   width on one class's rows (``MlsaFullWidth``: finite scores and the
    APFD of both sides' SC-CAM orders within 0.02 gated; each side's
    ``reg_covar`` rung, the score gap and SC-CAM moves printed, and the rows
    that move in or out of its top-k and SC-CAM first-k at k = 20% of the
-   class's rows, the share that active learning selects);
+   class's rows, the share that active learning selects); its CPU fit runs
+   in a child process (``--mlsa-cpu``) beside the phases that follow, and
+   is read and checked after phase 9;
 9. MNIST's active-learning phase (``cli.main(["--phase",
    "active_learning", ...])`` on run 0's checkpoint, the registry's spec
    cut as below, the launch counters set to 0 just before and read just
@@ -219,6 +247,7 @@ initializers drawn from the run id.
 """
 
 import argparse
+import asyncio
 import contextlib
 import dataclasses
 import json
@@ -234,7 +263,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from simple_tip_tpu_torch import _build, cli
+from simple_tip_tpu_torch import _build, cli, obs
 from simple_tip_tpu_torch.bridge import params_from_jax
 from simple_tip_tpu_torch.casestudies import base
 from simple_tip_tpu_torch.casestudies.base import CaseStudy
@@ -245,11 +274,13 @@ from simple_tip_tpu_torch.engine import (
     coverage_stats_cache,
     eval_active_learning,
     eval_prioritization,
+    run_program,
     sa_prep,
 )
 from simple_tip_tpu_torch.engine.coverage_handler import PROFILE_BADGE_SIZE, CoverageWorker
 from simple_tip_tpu_torch.engine.model_handler import BaseModel
 from simple_tip_tpu_torch.engine.run_program import (
+    KERNEL_COUNTERS,
     FusedChainRunner,
     GroupChainRunner,
     badge_layout,
@@ -271,8 +302,17 @@ from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.ops.levenshtein import lev_matrix, levenshtein
 from simple_tip_tpu_torch.ops.text_corruptor import TextCorruptor
+from simple_tip_tpu_torch.parallel import shared_loop
 from simple_tip_tpu_torch.plotters import eval_active_learning_table, eval_apfd_table, times_collector
 from simple_tip_tpu_torch.plotters.utils import APPROACHES, human_approach_names
+from simple_tip_tpu_torch.serving import (
+    Chunk,
+    ContinuousBatcher,
+    FusedChainExecutor,
+    ScoringEngine,
+    ServingKnobs,
+    drive,
+)
 from simple_tip_tpu_torch.utils import checkpoint
 
 START = time.perf_counter()  # the command's clock, from the imports on
@@ -309,12 +349,17 @@ SA_CHECK = {"mnist": (20_000, 500, (500, 64)), "cifar10": (25_000, 500, (500, 64
             "imdb": (2_000, 500, None)}
 SA_RTOL = 1e-3
 SA_ORDER_CAP = 0.05
-# pc-mlsa at full width (``mlsa_full_width``): its EM's float32 Cholesky of
+# pc-mlsa at full width (``MlsaFullWidth``): its EM's float32 Cholesky of
 # near-singular covariances fails on one device and not the other near the
 # ridge, so even the reg_covar rung can differ (CIFAR-10, 1e-4 on an H100
 # against 1e-6 on its host's CPU, scores 5.5x apart); what is gated is the
 # APFD of each side's SC-CAM order, within MLSA_APFD_GAP.
 MLSA_APFD_GAP = 0.02
+# Its CPU side (minutes of EM) runs in a child process beside the card
+# phases that follow (``--mlsa-cpu``), on this many of the host's threads,
+# and is read before phase 10's CPU side.
+MLSA_CPU_THREADS = 6
+MLSA_CPU_TIMEOUT_S = 900
 # Per path: model, (train, nominal, ood) sizes, NC and SA taps, DSA badge,
 # batch size (the JAX case study's prediction badge), coverage neurons of
 # the NC taps, the kernels the test_prio path must launch; for training the
@@ -428,6 +473,26 @@ CHAIN_GROUP_FAMILY = "mnist"
 CHAIN_GROUP_ROWS = 2_048
 CHAIN_GROUP_SIZES = (2, 3)
 CHAIN_SELECT_K = 100
+# The online scoring service (phase 7c): the families served as two tenants
+# of one engine, the badge (the offline walk's), the warm badges of the
+# capacity probe, the open-loop rates as multiples of MNIST's capacity, the
+# range of a request's rows, the flush deadline (the knob's default), the
+# 2.0x rate's queue bound in badges and the rows of the request served
+# after its burst.
+SERVE_FAMILIES = ("mnist", "imdb")
+SERVE_BADGE = PROFILE_BADGE_SIZE
+SERVE_PROBE_BADGES = 2
+SERVE_RATES = (0.5, 1.0, 2.0)
+SERVE_OVERLOAD = 2.0
+SERVE_REQUEST_ROWS = (1, 700)
+SERVE_FLUSH_S = 0.025
+SERVE_OVERLOAD_QUEUE_BADGES = 2
+SERVE_FINAL_ROWS = 100
+# A tenant registered while another is served: the MNIST rows and rate of
+# the traffic it lands in, and how long that traffic runs before it.
+SERVE_LATE_ROWS = 2_000
+SERVE_LATE_RATE = 2_000.0
+SERVE_LATE_START_S = 0.1
 COUNTERS = {
     "fused_mnist_forward": (fused_forward, "LAUNCHES"),
     "fused_cifar10_forward": (fused_forward, "CIFAR_LAUNCHES"),
@@ -1674,15 +1739,16 @@ def _mlsa_rungs(scorer):
     return [(m.gmm.n_components, m.gmm.reg_covar) for m in scorer.modal_sa.values()]
 
 
-def compare_sa_small(family: str, params, data, dev) -> dict:
+def compare_sa_small(family: str, params, data, dev, folder: str) -> tuple:
     """The four SA variants fitted and scored on the card and on the CPU
     from the same traces (``SA_CHECK``; pc-mlsa on one class and its
     features of highest variance where it says so): the same chosen k and
     MLSA ``reg_covar`` rungs, the same +inf rows, finite scores (and
     pc-lsa's log densities) within ``SA_RTOL``, SC-CAM orders equal in all
     but ``SA_ORDER_CAP`` of their positions. On the convnets pc-mlsa is
-    also fitted at full width (``mlsa_full_width``). Returns the errors and
-    times per variant."""
+    also fitted at full width (``MlsaFullWidth``, its CPU side in a child
+    process with its files in ``folder``). Returns the errors and times per
+    variant, and the full-width read (None on IMDB) to ``finish()``."""
     cfg = PATHS[family]
     n_train, n_test, mlsa_cut = SA_CHECK[family]
     (x_tr, _), (x_nom, y_nom), _ = data
@@ -1744,56 +1810,101 @@ def compare_sa_small(family: str, params, data, dev) -> dict:
                 breaches.append(f"{name}: non-finite log densities differ")
             if log_rel > SA_RTOL:
                 breaches.append(f"{name}: log densities rtol {log_rel} > {SA_RTOL}")
+    full_width = None
     if mlsa_cut is not None:
-        report["mlsa_full_width"] = mlsa_full_width(family, model, train_ats, train_pred,
-                                                    x_nom, y_nom, dev, breaches)
+        full_width = MlsaFullWidth(family, model, train_ats, train_pred, x_nom, y_nom, dev,
+                                   folder)
     print(json.dumps({"path": family, "sa_card_vs_cpu": report}))
     if breaches:
         raise AssertionError(f"{family} SA card vs CPU: " + "; ".join(breaches))
-    return report
+    return report, full_width
 
 
-def mlsa_full_width(family: str, model, train_ats, train_pred, x_nom, y_nom, dev,
-                    breaches: list) -> dict:
+#: Child processes started by this command, stopped when it ends.
+CHILDREN = []
+
+
+class MlsaFullWidth:
     """pc-mlsa at the tap's full width on the card and on the CPU: fitted on
     every training row of ``SA_CHECK``'s set predicted as the nominal set's
-    most predicted class, scored on every nominal row predicted as it.
-    Gates finite scores and the APFD of each side's SC-CAM order (faults:
-    misclassified rows) within ``MLSA_APFD_GAP``, appending to
-    ``breaches``; reads each side's components and ``reg_covar`` rung, the
-    score gap and the SC-CAM positions moved."""
-    test = model.get_activations(x_nom)
-    test_pred = test[-1].argmax(1).cpu().numpy()
-    cls = int(np.bincount(test_pred).argmax())
-    te = np.flatnonzero(test_pred == cls)
-    test_ats = torch.cat([t.reshape(t.shape[0], -1) for t in test[:-1]], dim=1)[
-        torch.from_numpy(te).to(dev)].cpu()
-    del test
-    tr = np.flatnonzero(train_pred == cls)
-    faults = test_pred[te] != np.asarray(y_nom)[te]
-    got = {}
-    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+    most predicted class, scored on every nominal row predicted as it. The
+    card side runs here; the CPU side in a child process (``--mlsa-cpu``,
+    ``MLSA_CPU_THREADS`` threads) on the same traces, started at once.
+    ``finish()`` waits for it and gates finite scores and the APFD of each
+    side's SC-CAM order (faults: misclassified rows) within
+    ``MLSA_APFD_GAP``; it reads each side's components and ``reg_covar``
+    rung, the score gap and the SC-CAM positions moved."""
+
+    def __init__(self, family: str, model, train_ats, train_pred, x_nom, y_nom, dev,
+                 folder: str):
+        self.family = family
+        test = model.get_activations(x_nom)
+        test_pred = test[-1].argmax(1).cpu().numpy()
+        self.cls = int(np.bincount(test_pred).argmax())
+        te = np.flatnonzero(test_pred == self.cls)
+        test_ats = torch.cat([t.reshape(t.shape[0], -1) for t in test[:-1]], dim=1)[
+            torch.from_numpy(te).to(dev)].cpu()
+        del test
+        tr = np.flatnonzero(train_pred == self.cls)
+        self.rows, self.features = [int(tr.size), int(te.size)], int(train_ats.shape[1])
+        self.faults = test_pred[te] != np.asarray(y_nom)[te]
+        self.path = os.path.join(folder, f"mlsa_cpu_{family}")
+        np.savez(self.path + ".in.npz", train_ats=train_ats[tr].numpy(),
+                 train_pred=train_pred[tr], test_ats=test_ats.numpy(), test_pred=test_pred[te])
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mlsa-cpu", self.path],
+            env=dict(os.environ, OMP_WAIT_POLICY="PASSIVE"), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(self.proc)
         scorer, scores, fit_s, score_s = _fit_and_score(
-            "pc-mlsa", train_ats[tr], train_pred[tr], test_ats, test_pred[te], device)
-        got[side] = (scores, _mlsa_rungs(scorer), fit_s, score_s)
-    (a, rungs_card, fit_card, score_card), (b, rungs_cpu, fit_cpu, score_cpu) = (
-        got["card"], got["cpu"])
-    if not (np.isfinite(a).all() and np.isfinite(b).all()):
-        breaches.append("pc-mlsa at full width: non-finite scores")
-    order_card, order_cpu = _sc_cam_order(a), _sc_cam_order(b)
-    apfd_card, apfd_cpu = apfd_from_order(faults, order_card), apfd_from_order(faults, order_cpu)
-    if not abs(apfd_card - apfd_cpu) <= MLSA_APFD_GAP:
-        breaches.append(f"pc-mlsa at full width: APFD {apfd_card} on the card, {apfd_cpu} on "
-                        f"the CPU, more than {MLSA_APFD_GAP} apart")
-    return {"class": cls, "rows": [int(tr.size), int(te.size)],
-            "features": int(train_ats.shape[1]), "faults": int(faults.sum()),
-            "components_reg_covar": {"card": rungs_card, "cpu": rungs_cpu},
-            "max_rel_err": _rel_gap(a, b),
-            "cam_positions_moved": int((order_card != order_cpu).sum()),
-            "selection_moved": mlsa_selection_moved(a, b, order_card, order_cpu),
-            "apfd_card": apfd_card, "apfd_cpu": apfd_cpu,
-            "card_fit_s": fit_card, "card_score_s": score_card,
-            "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu}
+            "pc-mlsa", train_ats[tr], train_pred[tr], test_ats, test_pred[te], dev)
+        self.card = (scores, _mlsa_rungs(scorer), fit_s, score_s)
+
+    def finish(self) -> dict:
+        t0 = time.perf_counter()
+        _, err = self.proc.communicate(timeout=MLSA_CPU_TIMEOUT_S)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"pc-mlsa CPU fit, {self.family}: exit "
+                                 f"{self.proc.returncode}\n{err[-4000:]}")
+        with open(self.path + ".out.pkl", "rb") as f:
+            cpu = pickle.load(f)
+        (a, rungs_card, fit_card, score_card), (b, rungs_cpu, fit_cpu, score_cpu) = self.card, cpu
+        breaches = []
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            breaches.append("non-finite scores")
+        order_card, order_cpu = _sc_cam_order(a), _sc_cam_order(b)
+        apfd_card = apfd_from_order(self.faults, order_card)
+        apfd_cpu = apfd_from_order(self.faults, order_cpu)
+        if not abs(apfd_card - apfd_cpu) <= MLSA_APFD_GAP:
+            breaches.append(f"APFD {apfd_card} on the card, {apfd_cpu} on the CPU, more "
+                            f"than {MLSA_APFD_GAP} apart")
+        report = {"class": self.cls, "rows": self.rows, "features": self.features,
+                  "faults": int(self.faults.sum()),
+                  "components_reg_covar": {"card": rungs_card, "cpu": rungs_cpu},
+                  "max_rel_err": _rel_gap(a, b),
+                  "cam_positions_moved": int((order_card != order_cpu).sum()),
+                  "selection_moved": mlsa_selection_moved(a, b, order_card, order_cpu),
+                  "apfd_card": apfd_card, "apfd_cpu": apfd_cpu,
+                  "card_fit_s": fit_card, "card_score_s": score_card,
+                  "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu,
+                  "cpu_waited_s": time.perf_counter() - t0}
+        print(json.dumps({"path": self.family, "mlsa_full_width": report}))
+        if breaches:
+            raise AssertionError(f"{self.family} pc-mlsa at full width: " + "; ".join(breaches))
+        return report
+
+
+def mlsa_cpu_main(path: str) -> int:
+    """The child's side of ``MlsaFullWidth``: pc-mlsa fitted and scored on
+    the CPU from ``path``.in.npz, the result pickled to ``path``.out.pkl."""
+    torch.set_num_threads(MLSA_CPU_THREADS)
+    t = np.load(path + ".in.npz")
+    scorer, scores, fit_s, score_s = _fit_and_score(
+        "pc-mlsa", torch.from_numpy(t["train_ats"]), t["train_pred"],
+        torch.from_numpy(t["test_ats"]), t["test_pred"], torch.device("cpu"))
+    with open(path + ".out.pkl", "wb") as f:
+        pickle.dump((scores, _mlsa_rungs(scorer), fit_s, score_s), f)
+    return 0
 
 
 def moved_rows(card, cpu) -> int:
@@ -1853,8 +1964,9 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
                                         small_report.pop("dsa_rows_apart"))
     flips = {k: v for k, v in small_report.items() if v}
     print(json.dumps({"path": family, "small_card_vs_cpu_flips": flips}))
-    sa_small = compare_sa_small(family, params, data, dev)
-    return {"sizes": PATHS[family]["sizes"], "slice_s": seconds, "phases_s": phases,
+    sa_small, full_width = compare_sa_small(family, params, data, dev, root)
+    return {"mlsa_full_width": full_width, "sizes": PATHS[family]["sizes"],
+            "slice_s": seconds, "phases_s": phases,
             "launches": launches, "apfd": apfd, "time_records": records, "sa": sa,
             "caches": caches, "apfd_table": table, "small": small_report, "sa_small": sa_small}
 
@@ -2387,6 +2499,259 @@ def check_group_runner(params_by_run: dict, data, dev) -> dict:
     return record
 
 
+# -- the online scoring service (phase 7c of the docstring) ------------------------
+
+def request_cuts(n: int, seed: int) -> np.ndarray:
+    """Boundaries of seeded requests of ``SERVE_REQUEST_ROWS`` rows (the last
+    one cut to what is left) over ``n`` rows."""
+    rng = np.random.default_rng(seed)
+    lo, hi = SERVE_REQUEST_ROWS
+    sizes = rng.integers(lo, hi + 1, size=2 * n // (lo + hi) + 2)
+    cuts = np.concatenate([[0], np.cumsum(sizes)])
+    cuts = cuts[cuts < n]
+    return np.append(cuts, n)
+
+
+def saturated_badges(cuts: np.ndarray) -> int:
+    """Badges the batcher packs a family's requests into when its queue is
+    deep: each request cut into chunks of at most a badge (as
+    ``ScoringEngine.score`` cuts it), chunks never split."""
+    packer = ContinuousBatcher(SERVE_BADGE, 0.0)
+    packer.add_model(None)
+    for i, n in enumerate(np.diff(cuts)):
+        for a in range(0, int(n), SERVE_BADGE):
+            packer.push(None, Chunk(i, a, None, min(SERVE_BADGE, int(n) - a), 0.0))
+    badges = 0
+    while packer.take_ready(0.0, force=True) is not None:
+        badges += 1
+    return badges
+
+
+class BadgeLog:
+    """Every badge an executor runs: ``(model, rows)`` in dispatch order."""
+
+    def __init__(self, executor):
+        self.badges = []
+        self._run_badge = executor.run_badge
+        executor.run_badge = self
+
+    def __call__(self, key, segments):
+        parts = self._run_badge(key, segments)
+        self.badges.append((key, sum(len(s) for s in segments)))
+        return parts
+
+    def since(self, start: int, key) -> list:
+        return [rows for k, rows in self.badges[start:] if k == key]
+
+
+def serving_faults(family: str, responses: dict, cuts: np.ndarray, ref: dict) -> list:
+    """Each answered request against the offline walk's rows, byte for byte."""
+    faults = []
+    for i, got in responses.items():
+        a, b = int(cuts[i]), int(cuts[i + 1])
+        want = {"pred": ref["pred"][a:b],
+                "uncertainties": {k: v[a:b] for k, v in ref["uncertainties"].items()},
+                "scores": {k: v[a:b] for k, v in ref["scores"].items()}}
+        faults += [f"{family} request {i} [{a}:{b}] {f}" for f in tree_faults(got, want)]
+    return faults
+
+
+async def serve_rate(executor, specs: dict, sets: dict, cuts: dict, rate_rows_s: float,
+                     knobs: ServingKnobs, final_rows: int = 0) -> tuple:
+    """One engine over the registered models, both tenants driven at once
+    open-loop at ``rate_rows_s`` each; then, if asked, one request of
+    ``final_rows`` rows. Returns the loadgen reports, the responses by
+    family and the final response."""
+    engine = ScoringEngine(executor, knobs)
+    for family, spec in specs.items():
+        engine.register_model(family, **spec)  # warm already: no capture
+    responses = {family: {} for family in sets}
+    async with engine:
+        reports = await asyncio.gather(*(
+            drive(engine, family, lambda i, f=family: sets[f][cuts[f][i]:cuts[f][i + 1]],
+                  n_requests=len(cuts[family]) - 1,
+                  rows_per_request=len(sets[family]) / (len(cuts[family]) - 1),
+                  arrival_rows_per_s=rate_rows_s,
+                  on_response=responses[family].__setitem__)
+            for family in sets))
+        final = await engine.score("mnist", sets["mnist"][:final_rows]) if final_rows else None
+    return dict(zip(sets, reports)), responses, final
+
+
+def register_while_serving(executor, spec: dict, x: np.ndarray, late_params, ref: dict,
+                           log: BadgeLog, loop) -> dict:
+    """A second MNIST tenant (run 1's weights: another fingerprint, and a
+    program no longer among the process's resolved ones, so a capture)
+    registered from this thread while the loop thread serves run 0's first
+    ``SERVE_LATE_ROWS`` rows at ``SERVE_LATE_RATE``: its program new, no
+    error and no shed, every answer byte-equal to the offline walk, and the
+    new tenant's first answer byte-equal to its own."""
+    engine = ScoringEngine(executor, ServingKnobs(max_badge=SERVE_BADGE,
+                                                  flush_deadline_s=SERVE_FLUSH_S))
+    engine.register_model("mnist", **spec)
+    xs = x[:SERVE_LATE_ROWS]
+    cuts = request_cuts(len(xs), 7)
+    responses = {}
+    loop.run(engine.start())
+    traffic = loop.submit(drive(
+        engine, "mnist", lambda i: xs[cuts[i]:cuts[i + 1]], n_requests=len(cuts) - 1,
+        rows_per_request=len(xs) / (len(cuts) - 1), arrival_rows_per_s=SERVE_LATE_RATE,
+        on_response=responses.__setitem__))
+    time.sleep(SERVE_LATE_START_S)
+    resolved = {id(p) for p in run_program._RESOLVED.values()}
+    before = len(log.badges)
+    t0 = time.perf_counter()
+    engine.register_model("mnist-run1", **{**spec, "params": late_params})
+    register_s = time.perf_counter() - t0
+    during = len(log.badges) - before
+    report = traffic.result(120)
+    late_rows = x[:SERVE_FINAL_ROWS]
+    answer = loop.run(engine.score("mnist-run1", late_rows))
+    loop.run(engine.close())
+    faults = serving_faults("mnist", responses, cuts, ref)
+    faults += serving_faults("mnist-run1", {0: answer}, np.array([0, len(late_rows)]),
+                             executor.runner("mnist-run1").score_dataset(late_rows))
+    if report["errors"] or report["shed"] or report["ok"] != report["requests"]:
+        faults.append(f"late register: {report['ok']} of {report['requests']} answered, "
+                      f"{report['shed']} shed, {report['errors']} errors")
+    program = executor.program("mnist-run1")
+    if id(program) in resolved or (executor.device.type == "cuda" and program.graph is None):
+        faults.append("late register: no capture of its own under the traffic")
+    return {"register_s": register_s, "badges_during_register": during,
+            "p99_ms": report["p99_ms"], "requests": report["requests"], "faults": faults}
+
+
+def run_serving(params: dict, data: dict, dev, late_params) -> dict:
+    """Phase 7c: ``ScoringEngine`` over ``FusedChainExecutor`` with MNIST and
+    IMDB registered (run 0's trained weights, the loaders' full training
+    and nominal sets, badge ``SERVE_BADGE``; the coverage statistics a load
+    from phase 7's cache); the capacity probe; the two tenants driven
+    open-loop, both at once, at ``SERVE_RATES`` x the rows a second that
+    keep the card busy at the probe's badge times and the requests' packed
+    fill (``saturated_badges``), by seeded requests over the full nominal
+    sets, every answer byte-equal to the offline walk
+    (``FusedChainRunner.score_dataset``: ``evaluate_dataset``'s walk
+    without its ranks) and no shed below ``SERVE_OVERLOAD``; at it, with a
+    queue bound of ``SERVE_OVERLOAD_QUEUE_BADGES`` badges, sheds counted in
+    ``serving.shed`` as the loadgen counts them, the admitted answers
+    byte-equal and a request served after the burst; B4's launches over the
+    traffic equal IMDB's badges times the launches its graph records; and
+    a tenant registered while another is served
+    (``register_while_serving``)."""
+    t_phase = time.perf_counter()
+    executor = FusedChainExecutor(device=dev)
+    specs, register_s, stats = {}, {}, {}
+    for family in SERVE_FAMILIES:
+        cfg = PATHS[family]
+        specs[family] = dict(model_def=cfg["model"](), params=params[family],
+                             training_set=data[family][0][0], nc_layers=cfg["nc"],
+                             batch_size=cfg["batch"], layout_like=data[family][1][0])
+        t0 = time.perf_counter()
+        executor.register_model(family, badge_size=SERVE_BADGE, **specs[family])
+        register_s[family] = time.perf_counter() - t0
+        stats[family] = executor.runner(family).worker.stats_cache_outcome
+    if any(outcome != "hit" for outcome in stats.values()):
+        raise AssertionError(f"serving: registration computed training statistics ({stats})")
+    sets = {family: data[family][1][0] for family in SERVE_FAMILIES}
+
+    badge_ms = {}
+    for family, x in sets.items():
+        badge = [x[:SERVE_BADGE]]
+        executor.run_badge(family, badge)  # warm
+        times = []
+        for _ in range(SERVE_PROBE_BADGES):
+            t0 = time.perf_counter()
+            executor.run_badge(family, badge)
+            times.append(time.perf_counter() - t0)
+        badge_ms[family] = 1e3 * sum(times) / len(times)
+    capacity = {family: SERVE_BADGE * 1e3 / ms for family, ms in badge_ms.items()}
+    refs = {family: executor.runner(family).score_dataset(x) for family, x in sets.items()}
+    cuts = {family: request_cuts(len(x), i) for i, (family, x) in enumerate(sets.items())}
+    # The rows a second of each tenant, both at once, that keep the card
+    # busy at the probe's badge times and the fill these requests pack to
+    # (chunks never split, so 1-700-row requests fill a badge to ~0.7):
+    # the rates' base. The two tenants at a rate of 1.0x of MNIST's badge
+    # capacity ask the card for ~1.5 times what it does.
+    packed = {family: saturated_badges(c) for family, c in cuts.items()}
+    mix_capacity = 1.0 / sum(packed[f] / len(sets[f]) * badge_ms[f] / 1e3 for f in sets)
+
+    b4 = KERNEL_COUNTERS.index((flash_attention, "LAUNCHES"))
+    recorded = {family: executor.program(family).recorded for family in SERVE_FAMILIES}
+    if dev.type == "cuda" and (recorded["imdb"][b4] <= 0 or any(recorded["mnist"])):
+        raise AssertionError(f"serving: the chain graphs record {recorded} launches")
+    log = BadgeLog(executor)
+    loop = shared_loop()
+    zero_counters()
+    dispatched0 = dict(executor.dispatches)
+    rates, faults = {}, []
+    for multiple in SERVE_RATES:
+        overload = multiple >= SERVE_OVERLOAD
+        knobs = ServingKnobs(
+            max_badge=SERVE_BADGE, flush_deadline_s=SERVE_FLUSH_S,
+            queue_bound_rows=SERVE_OVERLOAD_QUEUE_BADGES * SERVE_BADGE if overload else None)
+        shed0 = obs.metrics_snapshot()["counters"].get("serving.shed", 0)
+        start = len(log.badges)
+        t0 = time.perf_counter()
+        reports, responses, final = loop.run(serve_rate(
+            executor, specs, sets, cuts, multiple * mix_capacity, knobs,
+            final_rows=SERVE_FINAL_ROWS if overload else 0))
+        seconds = time.perf_counter() - t0
+        shed = obs.metrics_snapshot()["counters"].get("serving.shed", 0) - shed0
+        record = {"rate": multiple, "rows_per_s": multiple * mix_capacity, "seconds": seconds,
+                  "serving_shed": shed, "families": {}}
+        for family, rep in reports.items():
+            fills = log.since(start, family)
+            record["families"][family] = {
+                **{k: rep[k] for k in ("requests", "ok", "shed", "errors", "p50_ms", "p95_ms",
+                                       "p99_ms", "sustained_inputs_per_s", "elapsed_s")},
+                "badges": len(fills), "mean_fill": sum(fills) / (len(fills) * SERVE_BADGE)
+                if fills else None}
+            faults += serving_faults(family, responses[family], cuts[family], refs[family])
+            if rep["errors"] or rep["ok"] + rep["shed"] != rep["requests"]:
+                faults.append(f"{multiple}x {family}: {rep['errors']} errors, "
+                              f"{rep['ok']} + {rep['shed']} of {rep['requests']} settled")
+            if not overload and rep["shed"]:
+                faults.append(f"{multiple}x {family}: {rep['shed']} requests shed")
+            if not fills:
+                faults.append(f"{multiple}x {family}: no badge")
+        # the fair rotation: IMDB's badges ride between MNIST's, not after them
+        order = [k for k, _ in log.badges[start:]]
+        record["first_badges"] = "".join(k[0] for k in order[:24])
+        if set(order) == set(SERVE_FAMILIES) and order.index("imdb") > max(
+                i for i, k in enumerate(order) if k == "mnist"):
+            faults.append(f"{multiple}x: IMDB was served only after MNIST's last badge")
+        if overload:
+            sheds = sum(rep["shed"] for rep in reports.values())
+            if not sheds or shed != sheds:
+                faults.append(f"{multiple}x: {sheds} sheds by the loadgen, {shed} counted")
+            faults += serving_faults("mnist", {0: final},
+                                     np.array([0, SERVE_FINAL_ROWS]), refs["mnist"])
+            record["final_request_rows"] = len(final["pred"])
+        rates[multiple] = record
+        print(json.dumps({"serving_rate": record}))
+    launches = read_counters()
+    late = register_while_serving(executor, specs["mnist"], sets["mnist"], late_params,
+                                  refs["mnist"], log, loop)
+    faults += late.pop("faults")
+    imdb_badges = executor.dispatches["imdb"] - dispatched0["imdb"]
+    b4_want = imdb_badges * recorded["imdb"][b4]
+    if dev.type == "cuda" and launches["flash_attention_fwd"] != b4_want:
+        faults.append(f"B4 launched {launches['flash_attention_fwd']} times for {imdb_badges} "
+                      f"IMDB badges x {recorded['imdb'][b4]} a replay")
+    record = {"serving": list(SERVE_FAMILIES), "badge": SERVE_BADGE, "register_s": register_s,
+              "stats_cache": stats, "badge_ms": badge_ms, "capacity_rows_s": capacity,
+              "saturated_badges": packed, "mix_capacity_rows_s": mix_capacity,
+              "requests": {f: len(c) - 1 for f, c in cuts.items()},
+              "launches": launches, "imdb_badges": imdb_badges,
+              "b4_per_replay": recorded["imdb"][b4], "late_register": late, "faults": faults,
+              "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps(record))
+    if faults:
+        raise AssertionError("serving: " + "; ".join(faults[:20]))
+    record["rates"] = rates
+    return record
+
+
 def al_spec(data):
     """MNIST's registry study for the AL phase: one-epoch retrains and the
     registry's AL settings (checked), its training base cut to the first
@@ -2690,7 +3055,11 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="also write the full record as JSON here")
     parser.add_argument("--warm-cache", default=None, metavar="FAMILY",
                         help="(internal) the fresh-interpreter side of the cache phase")
+    parser.add_argument("--mlsa-cpu", default=None, metavar="PATH",
+                        help="(internal) the CPU side of the full-width pc-mlsa read")
     args = parser.parse_args()
+    if args.mlsa_cpu:
+        return mlsa_cpu_main(args.mlsa_cpu)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -2770,17 +3139,26 @@ def main() -> int:
                        for family in PATHS}
         os.environ["TIP_ASSETS"] = os.path.join(root, "train")
         group_cs = CaseStudy(registry_spec(CHAIN_GROUP_FAMILY))
-        group = check_group_runner(
-            {run: params_from_jax(group_cs.load_params(run))
-             for run in PATHS[CHAIN_GROUP_FAMILY]["runs"]},
-            data[CHAIN_GROUP_FAMILY], dev)
+        group_params = {run: params_from_jax(group_cs.load_params(run))
+                        for run in PATHS[CHAIN_GROUP_FAMILY]["runs"]}
+        group = check_group_runner(group_params, data[CHAIN_GROUP_FAMILY], dev)
         chain_phase_s = time.perf_counter() - t0
         print(json.dumps({"chain_phase_s": chain_phase_s, "gpu": smi}))
+        serving = run_serving(params, data, dev, late_params=group_params[1])
+        print(json.dumps({"serving_phase_s": serving["phase_s"], "gpu": smi}))
         active = run_active_learning(data[AL_FAMILY], dev, root)
+        for family in PATHS:
+            full_width = paths[family].pop("mlsa_full_width")
+            if full_width is not None:
+                paths[family]["sa_small"]["mlsa_full_width"] = full_width.finish()
         al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev)
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
         evaluation = run_evaluation_and_check(root)
     finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"train_s": {f: t["train_s"] for f, t in training.items()},
                       "paths_s": {f: p["slice_s"] for f, p in paths.items()},
@@ -2788,6 +3166,7 @@ def main() -> int:
                       "active_learning_s": active["seconds"],
                       "fused_paths_s": {f: r["slice_s"] for f, r in fused.items()},
                       "chain_phase_s": chain_phase_s,
+                      "serving_phase_s": serving["phase_s"],
                       "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
                       "command_s": time.perf_counter() - START}))
 
@@ -2804,6 +3183,7 @@ def main() -> int:
             if k["name"] == "flash_attention_fwd":
                 k["training_launches"] = train_launches[k["name"]]
                 k["fused_chain_launches"] = fused["imdb"]["launches"][k["name"]]
+                k["serving_launches"] = serving["launches"][k["name"]]
         if k["name"] in PATHS[AL_FAMILY]["kernels"]:
             k["al_launches"] = active["launches"][k["name"]]
     b2 = dsa_nearest_entry(dsa_by_path, launches_by_path("dsa_nearest"))
@@ -2820,6 +3200,7 @@ def main() -> int:
                        "active_learning": active, "al_selections": al_check,
                        "fused_chain": {"paths": fused, "graph_vs_eager": graph_eager,
                                        "group_runner": group},
+                       "serving": serving,
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

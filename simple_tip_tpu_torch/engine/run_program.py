@@ -38,15 +38,24 @@ The runners count their dispatches as plain attributes
 (``chain_dispatches``, ``rank_dispatches``, ``group_chain_dispatches``,
 ``select_dispatches``).
 
+Threads (the scoring service dispatches from worker threads): a program
+has one set of buffers, so a walk or a dispatch holds its ``lock`` from
+binding weights to reading outputs; every walk holds ``DEVICE_GATE``
+shared, and a capture holds it alone, because a CUDA graph capture fails,
+or records another thread's work, while another thread uses the card. The
+launch counters are read and added under a lock.
+
 Env knobs: ``TIP_FUSED_CHAIN`` (off by default), ``TIP_INT8_PROFILES``
 (the exact int8 coverage coding) and ``TIP_CHAIN_GROUP`` (models scored
 per group dispatch), with the JAX package's grammar and messages.
 """
 
 import collections
+import contextlib
 import copy
 import hashlib
 import os
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -88,6 +97,64 @@ KERNEL_COUNTERS = (
 )
 
 _RESOLVED: "collections.OrderedDict[str, Program]" = collections.OrderedDict()
+_COUNTER_LOCK = threading.Lock()
+
+
+class DeviceGate:
+    """A readers-writer gate over the card.
+
+    Program walks and dispatches hold it ``shared()`` (many at once; a
+    thread may nest them); a capture holds it ``exclusive()``, waiting for
+    the walks in flight to leave, and new walks wait while a capture waits.
+    A thread that holds it shared cannot capture: that would wait for
+    itself, so it raises instead.
+    """
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._local, "depth", 0)
+        if depth == 0:
+            with self._cond:
+                while self._writer or self._writers_waiting:
+                    self._cond.wait()
+                self._readers += 1
+        self._local.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._local.depth = depth
+            if depth == 0:
+                with self._cond:
+                    self._readers -= 1
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        if getattr(self._local, "depth", 0):
+            raise RuntimeError("a capture was asked for by a thread inside a program walk")
+        with self._cond:
+            self._writers_waiting += 1
+            while self._writer or self._readers:
+                self._cond.wait()
+            self._writers_waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
+#: The process's gate over the card (``DeviceGate``).
+DEVICE_GATE = DeviceGate()
 
 
 def _knob_on(name: str) -> bool:
@@ -188,13 +255,15 @@ def select_fingerprint(n: int, k: int, *tags) -> str:
 
 
 def _read_counters() -> List[int]:
-    return [getattr(module, attr) for module, attr in KERNEL_COUNTERS]
+    with _COUNTER_LOCK:
+        return [getattr(module, attr) for module, attr in KERNEL_COUNTERS]
 
 
 def _add_counters(deltas: Sequence[int]) -> None:
-    for (module, attr), d in zip(KERNEL_COUNTERS, deltas):
-        if d:
-            setattr(module, attr, getattr(module, attr) + d)
+    with _COUNTER_LOCK:
+        for (module, attr), d in zip(KERNEL_COUNTERS, deltas):
+            if d:
+                setattr(module, attr, getattr(module, attr) + d)
 
 
 class Program:
@@ -204,7 +273,9 @@ class Program:
     Callers write a badge's values (and a runner its weights) into ``args``
     in place and call the program; on the card it replays a CUDA graph and
     returns its static outputs (overwritten by the next replay), on the CPU
-    it runs ``fn``.
+    it runs ``fn``. They hold ``lock`` from the first write to the last
+    read; ``bound`` is the runner whose weights are in ``args``. The
+    capture holds ``DEVICE_GATE`` alone.
     """
 
     def __init__(self, fn, args: tuple, device: torch.device):
@@ -214,8 +285,11 @@ class Program:
         self.graph = None
         self.outputs = None
         self.recorded = [0] * len(KERNEL_COUNTERS)
+        self.lock = threading.Lock()
+        self.bound = None
         if device.type == "cuda":
-            self._capture()
+            with DEVICE_GATE.exclusive():
+                self._capture()
 
     @torch.no_grad()
     def _capture(self) -> None:
@@ -424,8 +498,17 @@ class FusedChainRunner:
 
             prog = resolve_program(fp, build)
             self._programs[key] = prog
-        prog.args[0].load_state_dict(self.weights)
+        with prog.lock:
+            self.bind(prog)
         return prog
+
+    def bind(self, prog: Program) -> None:
+        """This runner's weights into ``prog``'s model slot (by
+        device-to-device copies) unless they are there already; the caller
+        holds ``prog.lock``."""
+        if prog.bound is not self:
+            prog.args[0].load_state_dict(self.weights)
+            prog.bound = self
 
     def select_program(self, n: int, k: int) -> Program:
         """The AL top-k select program over an [n] vector."""
@@ -463,6 +546,37 @@ class FusedChainRunner:
 
     # -- evaluation ----------------------------------------------------------
 
+    def _walk(self, x: np.ndarray):
+        """The chain over every badge of ``x``: host ``pred``, uncertainties
+        and scores, the device accumulators (the packed profiles the ranks
+        read) and the walk's seconds."""
+        n = int(x.shape[0])
+        bs = self.badge_size
+        n_pad = -(-n // bs) * bs
+        walk = _Walk()
+        # resolved (captured) before the clock, as a compile is in the JAX
+        # package: the chain's seconds are the badges'
+        prog = self.chain_program(*badge_layout(x, bs, self.device))
+        with DEVICE_GATE.shared(), prog.lock, Timer(device=self.device) as chain_timer:
+            self.bind(prog)
+            xs = to_device(x, self.device)
+            _, x_buf, valid_buf = prog.args
+            for start in range(0, n, bs):
+                _load_badge(x_buf, valid_buf, xs, start)
+                walk.add(start, prog(), n_pad)
+                self.chain_dispatches += 1
+            pred = walk.host(("pred",), n)
+            uncertainties = walk.uncertainties(n)
+            scores = {mid: walk.host(("score", mid), n) for mid in self.worker.metrics}
+        return pred, uncertainties, scores, walk, chain_timer.get()
+
+    def score_dataset(self, x: np.ndarray) -> Dict:
+        """``pred``, ``uncertainties`` and ``scores`` of one test set: what
+        ``evaluate_dataset`` returns of them, from the same badge walk,
+        without the ranks."""
+        pred, uncertainties, scores, _, _ = self._walk(x)
+        return {"pred": pred, "uncertainties": uncertainties, "scores": scores}
+
     def evaluate_dataset(self, x: np.ndarray, seed: Optional[int] = None, select_k=None) -> Dict:
         """Fused prio evaluation of one test set.
 
@@ -475,24 +589,7 @@ class FusedChainRunner:
         ({quantifier: indices of the k most uncertain inputs, ascending by
         value, best last}).
         """
-        n = int(x.shape[0])
-        bs = self.badge_size
-        n_pad = -(-n // bs) * bs
-        walk = _Walk()
-        # resolved (captured) before the clock, as a compile is in the JAX
-        # package: the chain's seconds are the badges'
-        prog = self.chain_program(*badge_layout(x, bs, self.device))
-        with Timer(device=self.device) as chain_timer:
-            xs = to_device(x, self.device)
-            _, x_buf, valid_buf = prog.args
-            for start in range(0, n, bs):
-                _load_badge(x_buf, valid_buf, xs, start)
-                walk.add(start, prog(), n_pad)
-                self.chain_dispatches += 1
-            pred = walk.host(("pred",), n)
-            uncertainties = walk.uncertainties(n)
-            scores = {mid: walk.host(("score", mid), n) for mid in self.worker.metrics}
-        chain_s = chain_timer.get()
+        pred, uncertainties, scores, walk, chain_s = self._walk(x)
 
         # the one chain dispatch covers predict and quantify: its time is the
         # shared prediction time, with a zero quantify entry
@@ -643,6 +740,7 @@ class GroupChainRunner:
         )
         self._programs: Dict[tuple, Program] = {}
         self._select_programs: Dict[tuple, Program] = {}
+        self._tables_bound = None
         self.group_chain_dispatches = 0
         self.rank_dispatches = 0
         self.select_dispatches = 0
@@ -702,12 +800,22 @@ class GroupChainRunner:
 
             prog = resolve_program(fp, build)
             self._programs[key] = prog
-        nets, table_slot = prog.args[:2]
-        for net, w in zip(nets, weights):
-            net.load_state_dict(w)
-        for dst, src in zip(table_slot, tables):
-            dst.copy_(torch.from_numpy(src))
+        self._tables_bound = tables
+        with prog.lock:
+            prog.bound = None
+            self.bind(prog)
         return prog
+
+    def bind(self, prog: Program) -> None:
+        """This group's staged weights and cut tables into ``prog``'s slots
+        unless they are there already; the caller holds ``prog.lock``."""
+        if prog.bound is not self:
+            nets, table_slot = prog.args[:2]
+            for net, w in zip(nets, self.staged.ready()):
+                net.load_state_dict(w)
+            for dst, src in zip(table_slot, self._tables_bound):
+                dst.copy_(torch.from_numpy(src))
+            prog.bound = self
 
     def select_program(self, n: int, k: int) -> Program:
         """The group AL top-k select program over a [G, n] matrix."""
@@ -745,7 +853,8 @@ class GroupChainRunner:
         n_pad = -(-n // bs) * bs
         walk = _Walk()
         prog = self.chain_program(x, *badge_layout(x, bs, self.device))
-        with Timer(device=self.device) as chain_timer:
+        with DEVICE_GATE.shared(), prog.lock, Timer(device=self.device) as chain_timer:
+            self.bind(prog)
             xs = to_device(x, self.device)
             _, _, x_buf, valid_buf, members_buf = prog.args
             members_buf.fill_(m)
