@@ -170,6 +170,32 @@ Needs one CUDA card; exits non-zero without one (and without the
    rate and family the sustained inputs/s, p50/p95/p99 ms, mean badge
    fill, badges, sheds and errors; register seconds, badge ms and the
    phase's seconds;
+7d. the study-execution layer (``parallel/run_scheduler.py``,
+   ``resilience/``, ``utils/device_watchdog.py``, ``data/real_onramp.py``):
+   (a) the watchdog on the card: ``probe_local_chips`` (cards counted in a
+   subprocess) and ``ensure_responsive_backend``, seconds printed; (b) MNIST
+   run 1's in-process ``cli.main --phase test_prio`` walk (its SA fits into
+   phase 7's cache), then ``cli.main(... "--runs", "0,1", "--workers", "2")``
+   with ``TIP_WORKER_PLATFORMS=default,default``, both caches phase 7's (every
+   SA fit a load) and each worker's event stream under ``TIP_OBS_DIR``:
+   each run on exactly one worker, both card workers running at once, each
+   launching B1 and B2 (read from its flushed metrics), no run on a CPU
+   worker, every artifact byte-equal to the in-process walk's for the same
+   run and route (run 0: phase 7's), both runs journaled; the scheduler's
+   wall time, each run's seconds in its worker and the in-process seconds
+   (run 0 phase 7's, run 1 just measured; both fitted SA) printed; (c) the
+   drills in a fresh ``python -c`` interpreter (``drills_main``; its
+   synthetic-phase workers import no torch), on two ``default`` workers: a
+   ``worker.run`` kill of one run (requeued onto a CPU worker, the JAX
+   contract for a synthetic phase; completes), a
+   wedge past a 3 s ``run_timeout_s`` (reaped, requeued, counted), and a
+   journaled phase whose two failing runs are the only ones its resume
+   (plan cleared) runs; (d) the onramp: ``prepare_all`` on raw layouts
+   written from ``--seed`` (the 15 MNIST-C folders of 10,000 images, a
+   CIFAR-10-C release of two corruptions of 5,000, fmnist-C, 1,000 + 1,000
+   English-like IMDB texts), IMDB's corruption on the card; the loaders read
+   the results: every MNIST-C slice byte-equal to the written rows in the
+   cache and in ``load_mnist``'s OOD set, IMDB's corrupted set loaded;
 8. per path, the slice with DSA on a small subset on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
@@ -186,8 +212,9 @@ Needs one CUDA card; exits non-zero without one (and without the
    ``reg_covar`` rung, the score gap and SC-CAM moves printed, and the rows
    that move in or out of its top-k and SC-CAM first-k at k = 20% of the
    class's rows, the share that active learning selects); its CPU fit runs
-   in a child process (``--mlsa-cpu``) beside the phases that follow, and
-   is read and checked after phase 9;
+   in a child process (``--cpu-ref``, ``CpuReference``) beside the phases
+   that follow, and is read and checked after phase 9, as are the four
+   small variants' CPU fits (a child process too);
 9. MNIST's active-learning phase (``cli.main(["--phase",
    "active_learning", ...])`` on run 0's checkpoint, the registry's spec
    cut as below, the launch counters set to 0 just before and read just
@@ -216,7 +243,8 @@ Needs one CUDA card; exits non-zero without one (and without the
    pc-mdsa and pc-mmdsa: pc-mlsa's CPU fit at 1,600 features takes about
    a minute a class, and its known card/CPU gap is counted at full width
    in phase 8; both caches are off here (the CPU would load the card's
-   fits);
+   fits); the CPU side runs in a child process (``--cpu-ref``) started
+   after training, beside phases 6-9;
 11. ``at_collection`` (``CaseStudy.collect_activations``) of MNIST run 0 on
    the first 1,000 rows of each set, on the card and on the CPU: the same
    files, dtypes and shapes, labels byte-equal, each tap within 1e-5 of its
@@ -298,7 +326,7 @@ from simple_tip_tpu_torch.models.train import (
     evaluate_accuracy,
     training_rows,
 )
-from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
+from simple_tip_tpu_torch.ops import LAUNCH_COUNTERS, dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.ops.levenshtein import lev_matrix, levenshtein
 from simple_tip_tpu_torch.ops.text_corruptor import TextCorruptor
@@ -356,10 +384,14 @@ SA_ORDER_CAP = 0.05
 # APFD of each side's SC-CAM order, within MLSA_APFD_GAP.
 MLSA_APFD_GAP = 0.02
 # Its CPU side (minutes of EM) runs in a child process beside the card
-# phases that follow (``--mlsa-cpu``), on this many of the host's threads,
-# and is read before phase 10's CPU side.
+# phases that follow (``CpuReference``), on this many of the host's threads,
+# and is read after phase 9.
 MLSA_CPU_THREADS = 6
-MLSA_CPU_TIMEOUT_S = 900
+# The other CPU sides of card-against-CPU checks (phase 8's four small SA
+# variants, phase 10's selections) run in child processes too, on this many
+# threads each.
+CPU_REF_THREADS = 2
+CPU_REF_TIMEOUT_S = 900
 # Per path: model, (train, nominal, ood) sizes, NC and SA taps, DSA badge,
 # batch size (the JAX case study's prediction badge), coverage neurons of
 # the NC taps, the kernels the test_prio path must launch; for training the
@@ -493,14 +525,21 @@ SERVE_FINAL_ROWS = 100
 SERVE_LATE_ROWS = 2_000
 SERVE_LATE_RATE = 2_000.0
 SERVE_LATE_START_S = 0.1
-COUNTERS = {
-    "fused_mnist_forward": (fused_forward, "LAUNCHES"),
-    "fused_cifar10_forward": (fused_forward, "CIFAR_LAUNCHES"),
-    "dsa_nearest": (dsa_cuda, "LAUNCHES"),
-    "flash_attention_fwd": (flash_attention, "LAUNCHES"),
-    "flash_attention_bwd_dq": (flash_attention, "BWD_DQ_LAUNCHES"),
-    "flash_attention_bwd_dkv": (flash_attention, "BWD_DKV_LAUNCHES"),
-}
+# The study-execution layer (phase 7d): MNIST's runs 0 and 1 over two card
+# workers, the drills' run timeouts (the wedge drill's is the one it
+# exceeds), the onramp's CIFAR-10-C release (corruptions, rows each) and
+# IMDB corpus (train, test texts).
+SCHED_FAMILY = "mnist"
+SCHED_RUNS = (0, 1)
+SCHED_WORKERS = 2
+SCHED_WEDGE_TIMEOUT_S = 3.0
+SCHED_DRILL_RUN_TIMEOUT_S = 120.0
+SCHED_DRILL_TIMEOUT_S = 300
+ONRAMP_CIFAR = (("fog", "snow"), 5_000)
+ONRAMP_TEXTS = (1_000, 1_000)
+# Each kernel wrapper's launch counter (the names the workers' metrics use).
+COUNTERS = {name: (sys.modules[module], attr)
+            for name, (module, attr) in LAUNCH_COUNTERS.items()}
 
 
 def zero_counters() -> None:
@@ -1739,16 +1778,32 @@ def _mlsa_rungs(scorer):
     return [(m.gmm.n_components, m.gmm.reg_covar) for m in scorer.modal_sa.values()]
 
 
-def compare_sa_small(family: str, params, data, dev, folder: str) -> tuple:
+def _sa_side(picks: dict, train_ats, train_pred, test_ats, test_pred, device) -> dict:
+    """The four SA variants of ``NEW_SA`` fitted and scored on ``device`` on
+    ``picks``' rows and features: per variant (scores, chosen k, MLSA
+    ``reg_covar`` rungs, fit seconds, score seconds, pc-lsa's log densities)."""
+    out = {}
+    for name in NEW_SA:
+        tr, te, cols = picks[name]
+        scorer, scores, fit_s, score_s = _fit_and_score(
+            name, train_ats[tr][:, cols], train_pred[tr], test_ats[te][:, cols],
+            test_pred[te], device)
+        k = getattr(scorer.discriminator, "best_k", None)
+        rungs = [m.gmm.reg_covar for m in scorer.modal_sa.values() if hasattr(m, "gmm")]
+        log_density = (_lsa_log_densities(scorer, test_ats, test_pred, device)
+                       if name == "pc-lsa" else None)
+        out[name] = (scores, k, rungs, fit_s, score_s, log_density)
+    return out
+
+
+def compare_sa_small(family: str, params, data, dev, folder: str) -> "SaSmall":
     """The four SA variants fitted and scored on the card and on the CPU
     from the same traces (``SA_CHECK``; pc-mlsa on one class and its
-    features of highest variance where it says so): the same chosen k and
-    MLSA ``reg_covar`` rungs, the same +inf rows, finite scores (and
-    pc-lsa's log densities) within ``SA_RTOL``, SC-CAM orders equal in all
-    but ``SA_ORDER_CAP`` of their positions. On the convnets pc-mlsa is
-    also fitted at full width (``MlsaFullWidth``, its CPU side in a child
-    process with its files in ``folder``). Returns the errors and times per
-    variant, and the full-width read (None on IMDB) to ``finish()``."""
+    features of highest variance where it says so): the card side here,
+    the CPU side in a child process (``CpuReference``, files in ``folder``)
+    started first. On the convnets pc-mlsa is also fitted at full width
+    (``MlsaFullWidth``, its CPU side in a child process too). Returns the
+    pending comparison, whose ``finish()`` gates it."""
     cfg = PATHS[family]
     n_train, n_test, mlsa_cut = SA_CHECK[family]
     (x_tr, _), (x_nom, y_nom), _ = data
@@ -1767,57 +1822,70 @@ def compare_sa_small(family: str, params, data, dev, folder: str) -> tuple:
         tr = np.flatnonzero(train_pred == cls)[: mlsa_cut[0]]
         top = np.sort(np.argsort(train_ats[tr].var(dim=0).numpy())[-mlsa_cut[1]:])
         picks["pc-mlsa"] = (tr, np.flatnonzero(test_pred == cls), top)
-    sides = {}
-    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        out = {}
-        for name in NEW_SA:
-            tr, te, cols = picks[name]
-            scorer, scores, fit_s, score_s = _fit_and_score(
-                name, train_ats[tr][:, cols], train_pred[tr], test_ats[te][:, cols],
-                test_pred[te], device)
-            k = getattr(scorer.discriminator, "best_k", None)
-            rungs = [m.gmm.reg_covar for m in scorer.modal_sa.values() if hasattr(m, "gmm")]
-            log_density = (_lsa_log_densities(scorer, test_ats, test_pred, device)
-                           if name == "pc-lsa" else None)
-            out[name] = (scores, k, rungs, fit_s, score_s, log_density)
-        sides[side] = out
-    report, breaches = {}, []
-    for name in NEW_SA:
-        a, k_card, rungs_card, fit_card, score_card, log_card = sides["card"][name]
-        b, k_cpu, rungs_cpu, fit_cpu, score_cpu, log_cpu = sides["cpu"][name]
-        rel = _rel_gap(a, b)
-        moved = int((_sc_cam_order(a) != _sc_cam_order(b)).sum())
-        if k_card != k_cpu or rungs_card != rungs_cpu:
-            breaches.append(f"{name}: card k={k_card}, rungs {rungs_card}; "
-                            f"CPU k={k_cpu}, rungs {rungs_cpu}")
-        if not np.array_equal(np.isinf(a), np.isinf(b)) or np.isnan(a).any() or np.isnan(b).any():
-            breaches.append(f"{name}: non-finite rows differ")
-        if rel > SA_RTOL:
-            breaches.append(f"{name}: rtol {rel} > {SA_RTOL}")
-        if moved > SA_ORDER_CAP * a.shape[0]:
-            breaches.append(f"{name}: {moved} of {a.shape[0]} SC-CAM positions differ")
-        report[name] = {"rows": [int(np.size(train_pred[picks[name][0]])), int(a.shape[0])],
-                        "features": int(train_ats[:1, picks[name][2]].shape[1]),
-                        "max_rel_err": rel, "cam_positions_moved": moved,
-                        "chosen_k": k_card, "reg_covar": rungs_card, "inf": int(np.isinf(a).sum()),
-                        "card_fit_s": fit_card, "card_score_s": score_card,
-                        "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu}
-        if log_card is not None:
-            log_rel = _rel_gap(log_card, log_cpu)
-            report[name]["log_density"] = {
-                "finite": int(np.isfinite(log_cpu).sum()), "max_rel_err": log_rel}
-            if not all(np.array_equal(f(log_card), f(log_cpu)) for f in (np.isnan, np.isinf)):
-                breaches.append(f"{name}: non-finite log densities differ")
-            if log_rel > SA_RTOL:
-                breaches.append(f"{name}: log densities rtol {log_rel} > {SA_RTOL}")
+    cpu = CpuReference(os.path.join(folder, f"sa_small_{family}"), "sa_small", picks=picks,
+                       train_ats=train_ats, train_pred=train_pred, test_ats=test_ats,
+                       test_pred=test_pred)
+    card = _sa_side(picks, train_ats, train_pred, test_ats, test_pred, dev)
     full_width = None
     if mlsa_cut is not None:
         full_width = MlsaFullWidth(family, model, train_ats, train_pred, x_nom, y_nom, dev,
                                    folder)
-    print(json.dumps({"path": family, "sa_card_vs_cpu": report}))
-    if breaches:
-        raise AssertionError(f"{family} SA card vs CPU: " + "; ".join(breaches))
-    return report, full_width
+    return SaSmall(family, picks, train_ats, train_pred, card, cpu, full_width)
+
+
+class SaSmall:
+    """``compare_sa_small``'s comparison, pending its CPU sides."""
+
+    def __init__(self, family, picks, train_ats, train_pred, card, cpu, full_width):
+        self.family, self.picks, self.card, self.cpu = family, picks, card, cpu
+        self.full_width = full_width
+        self.rows = {name: int(np.size(train_pred[picks[name][0]])) for name in NEW_SA}
+        self.features = {name: int(train_ats[:1, picks[name][2]].shape[1]) for name in NEW_SA}
+
+    def finish(self) -> dict:
+        """Gate the two sides: the same chosen k and MLSA ``reg_covar`` rungs,
+        the same +inf rows, finite scores (and pc-lsa's log densities) within
+        ``SA_RTOL``, SC-CAM orders equal in all but ``SA_ORDER_CAP`` of their
+        positions; then the full-width read. Returns the errors and times
+        per variant."""
+        cpu, waited_s = self.cpu.result()
+        report, breaches = {"cpu_waited_s": waited_s}, []
+        for name in NEW_SA:
+            a, k_card, rungs_card, fit_card, score_card, log_card = self.card[name]
+            b, k_cpu, rungs_cpu, fit_cpu, score_cpu, log_cpu = cpu[name]
+            rel = _rel_gap(a, b)
+            moved = int((_sc_cam_order(a) != _sc_cam_order(b)).sum())
+            if k_card != k_cpu or rungs_card != rungs_cpu:
+                breaches.append(f"{name}: card k={k_card}, rungs {rungs_card}; "
+                                f"CPU k={k_cpu}, rungs {rungs_cpu}")
+            if not np.array_equal(np.isinf(a), np.isinf(b)) or np.isnan(a).any() or \
+                    np.isnan(b).any():
+                breaches.append(f"{name}: non-finite rows differ")
+            if rel > SA_RTOL:
+                breaches.append(f"{name}: rtol {rel} > {SA_RTOL}")
+            if moved > SA_ORDER_CAP * a.shape[0]:
+                breaches.append(f"{name}: {moved} of {a.shape[0]} SC-CAM positions differ")
+            report[name] = {"rows": [self.rows[name], int(a.shape[0])],
+                            "features": self.features[name],
+                            "max_rel_err": rel, "cam_positions_moved": moved,
+                            "chosen_k": k_card, "reg_covar": rungs_card,
+                            "inf": int(np.isinf(a).sum()),
+                            "card_fit_s": fit_card, "card_score_s": score_card,
+                            "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu}
+            if log_card is not None:
+                log_rel = _rel_gap(log_card, log_cpu)
+                report[name]["log_density"] = {
+                    "finite": int(np.isfinite(log_cpu).sum()), "max_rel_err": log_rel}
+                if not all(np.array_equal(f(log_card), f(log_cpu)) for f in (np.isnan, np.isinf)):
+                    breaches.append(f"{name}: non-finite log densities differ")
+                if log_rel > SA_RTOL:
+                    breaches.append(f"{name}: log densities rtol {log_rel} > {SA_RTOL}")
+        print(json.dumps({"path": self.family, "sa_card_vs_cpu": report}))
+        if breaches:
+            raise AssertionError(f"{self.family} SA card vs CPU: " + "; ".join(breaches))
+        if self.full_width is not None:
+            report["mlsa_full_width"] = self.full_width.finish()
+        return report
 
 
 #: Child processes started by this command, stopped when it ends.
@@ -1828,7 +1896,7 @@ class MlsaFullWidth:
     """pc-mlsa at the tap's full width on the card and on the CPU: fitted on
     every training row of ``SA_CHECK``'s set predicted as the nominal set's
     most predicted class, scored on every nominal row predicted as it. The
-    card side runs here; the CPU side in a child process (``--mlsa-cpu``,
+    card side runs here; the CPU side in a child process (``CpuReference``,
     ``MLSA_CPU_THREADS`` threads) on the same traces, started at once.
     ``finish()`` waits for it and gates finite scores and the APFD of each
     side's SC-CAM order (faults: misclassified rows) within
@@ -1848,26 +1916,20 @@ class MlsaFullWidth:
         tr = np.flatnonzero(train_pred == self.cls)
         self.rows, self.features = [int(tr.size), int(te.size)], int(train_ats.shape[1])
         self.faults = test_pred[te] != np.asarray(y_nom)[te]
-        self.path = os.path.join(folder, f"mlsa_cpu_{family}")
-        np.savez(self.path + ".in.npz", train_ats=train_ats[tr].numpy(),
-                 train_pred=train_pred[tr], test_ats=test_ats.numpy(), test_pred=test_pred[te])
-        self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mlsa-cpu", self.path],
-            env=dict(os.environ, OMP_WAIT_POLICY="PASSIVE"), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
-        CHILDREN.append(self.proc)
+        self.cpu = CpuReference(os.path.join(folder, f"mlsa_cpu_{family}"), "mlsa_full_width",
+                                threads=MLSA_CPU_THREADS, train_ats=train_ats[tr],
+                                train_pred=train_pred[tr], test_ats=test_ats,
+                                test_pred=test_pred[te])
+        self.proc = self.cpu.proc
         scorer, scores, fit_s, score_s = _fit_and_score(
             "pc-mlsa", train_ats[tr], train_pred[tr], test_ats, test_pred[te], dev)
         self.card = (scores, _mlsa_rungs(scorer), fit_s, score_s)
 
     def finish(self) -> dict:
-        t0 = time.perf_counter()
-        _, err = self.proc.communicate(timeout=MLSA_CPU_TIMEOUT_S)
-        if self.proc.returncode != 0:
-            raise AssertionError(f"pc-mlsa CPU fit, {self.family}: exit "
-                                 f"{self.proc.returncode}\n{err[-4000:]}")
-        with open(self.path + ".out.pkl", "rb") as f:
-            cpu = pickle.load(f)
+        try:
+            cpu, waited_s = self.cpu.result()
+        except AssertionError as e:
+            raise AssertionError(f"pc-mlsa CPU fit, {self.family}: {e}") from None
         (a, rungs_card, fit_card, score_card), (b, rungs_cpu, fit_cpu, score_cpu) = self.card, cpu
         breaches = []
         if not (np.isfinite(a).all() and np.isfinite(b).all()):
@@ -1887,23 +1949,67 @@ class MlsaFullWidth:
                   "apfd_card": apfd_card, "apfd_cpu": apfd_cpu,
                   "card_fit_s": fit_card, "card_score_s": score_card,
                   "cpu_fit_s": fit_cpu, "cpu_score_s": score_cpu,
-                  "cpu_waited_s": time.perf_counter() - t0}
+                  "cpu_waited_s": waited_s}
         print(json.dumps({"path": self.family, "mlsa_full_width": report}))
         if breaches:
             raise AssertionError(f"{self.family} pc-mlsa at full width: " + "; ".join(breaches))
         return report
 
 
-def mlsa_cpu_main(path: str) -> int:
-    """The child's side of ``MlsaFullWidth``: pc-mlsa fitted and scored on
-    the CPU from ``path``.in.npz, the result pickled to ``path``.out.pkl."""
-    torch.set_num_threads(MLSA_CPU_THREADS)
-    t = np.load(path + ".in.npz")
+class CpuReference:
+    """The CPU side of a card-against-CPU check, computed in a child process
+    (``--cpu-ref PATH`` on ``threads`` threads) beside the card phases:
+    ``kind`` and its keyword inputs pickled to ``PATH.in.pkl``, its output to
+    ``PATH.out.pkl``, its log to ``PATH.log``; ``result()`` waits for it and
+    returns (the output, the seconds waited)."""
+
+    def __init__(self, path: str, kind: str, threads: int = CPU_REF_THREADS, **inputs):
+        self.path, self.kind = path, kind
+        with open(path + ".in.pkl", "wb") as f:
+            pickle.dump((kind, threads, inputs), f, protocol=4)
+        self.log = open(path + ".log", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-ref", path],
+            env=dict(os.environ, OMP_WAIT_POLICY="PASSIVE"), stdout=self.log,
+            stderr=subprocess.STDOUT)
+        CHILDREN.append(self.proc)
+
+    def result(self) -> tuple:
+        t0 = time.perf_counter()
+        code = self.proc.wait(timeout=CPU_REF_TIMEOUT_S)
+        self.log.close()
+        if code != 0:
+            with open(self.path + ".log") as f:
+                raise AssertionError(f"CPU reference {self.kind} exited {code}:\n"
+                                     f"{f.read()[-4000:]}")
+        with open(self.path + ".out.pkl", "rb") as f:
+            return pickle.load(f), time.perf_counter() - t0
+
+
+def _sa_small_cpu(picks, train_ats, train_pred, test_ats, test_pred):
+    return _sa_side(picks, train_ats, train_pred, test_ats, test_pred, torch.device("cpu"))
+
+
+def _mlsa_full_width_cpu(train_ats, train_pred, test_ats, test_pred):
     scorer, scores, fit_s, score_s = _fit_and_score(
-        "pc-mlsa", torch.from_numpy(t["train_ats"]), t["train_pred"],
-        torch.from_numpy(t["test_ats"]), t["test_pred"], torch.device("cpu"))
+        "pc-mlsa", train_ats, train_pred, test_ats, test_pred, torch.device("cpu"))
+    return scores, _mlsa_rungs(scorer), fit_s, score_s
+
+
+def _al_selections_cpu(tree, datasets, x_train, k):
+    with caches_off():
+        return al_selections(params_from_jax(tree), datasets, x_train, k, torch.device("cpu"))
+
+
+def cpu_ref_main(path: str) -> int:
+    """The child's side of ``CpuReference``."""
+    with open(path + ".in.pkl", "rb") as f:
+        kind, threads, inputs = pickle.load(f)
+    torch.set_num_threads(threads)
+    out = {"sa_small": _sa_small_cpu, "mlsa_full_width": _mlsa_full_width_cpu,
+           "al_selections": _al_selections_cpu}[kind](**inputs)
     with open(path + ".out.pkl", "wb") as f:
-        pickle.dump((scores, _mlsa_rungs(scorer), fit_s, score_s), f)
+        pickle.dump(out, f, protocol=4)
     return 0
 
 
@@ -1964,8 +2070,8 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
                                         small_report.pop("dsa_rows_apart"))
     flips = {k: v for k, v in small_report.items() if v}
     print(json.dumps({"path": family, "small_card_vs_cpu_flips": flips}))
-    sa_small, full_width = compare_sa_small(family, params, data, dev, root)
-    return {"mlsa_full_width": full_width, "sizes": PATHS[family]["sizes"],
+    sa_small = compare_sa_small(family, params, data, dev, root)
+    return {"sizes": PATHS[family]["sizes"],
             "slice_s": seconds, "phases_s": phases,
             "launches": launches, "apfd": apfd, "time_records": records, "sa": sa,
             "caches": caches, "apfd_table": table, "small": small_report, "sa_small": sa_small}
@@ -2074,11 +2180,14 @@ def check_cache_entries(family: str, recorder: CacheRecorder) -> dict:
 
 
 @contextlib.contextmanager
-def caches_off():
-    """Both caches off, as a card-against-CPU comparison needs (the CPU side
-    would load the card's fits)."""
-    saved = {var: os.environ.get(var) for var in CACHE_VARS}
-    os.environ.update(dict.fromkeys(CACHE_VARS, "off"))
+def patched_env(values: dict):
+    """``os.environ`` with ``values`` set (None unsets) for a ``with``."""
+    saved = {var: os.environ.get(var) for var in values}
+    for var, value in values.items():
+        if value is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = value
     try:
         yield
     finally:
@@ -2087,6 +2196,12 @@ def caches_off():
                 os.environ.pop(var, None)
             else:
                 os.environ[var] = value
+
+
+def caches_off():
+    """Both caches off, as a card-against-CPU comparison needs (the CPU side
+    would load the card's fits)."""
+    return patched_env(dict.fromkeys(CACHE_VARS, "off"))
 
 
 def tensor_devices(obj, seen=None) -> set:
@@ -2386,9 +2501,7 @@ def run_fused_path(family: str, params, data, dev, root: str, per_phase_s: dict)
     env = {"TIP_ASSETS": dst, "TIP_FUSED_CHAIN": "1",
            "TIP_SA_CACHE_DIR": os.path.join(src, "sa_fit_cache"),
            "TIP_COV_STATS_CACHE_DIR": os.path.join(src, "coverage_stats_cache")}
-    saved = {var: os.environ.get(var) for var in env}
-    os.environ.update(env)
-    try:
+    with patched_env(env):
         zero_counters()
         t0 = time.perf_counter()
         with CacheRecorder() as recorder:
@@ -2398,12 +2511,6 @@ def run_fused_path(family: str, params, data, dev, root: str, per_phase_s: dict)
         launches = read_counters()
         rows = {"nominal": len(data[1][1]), "ood": len(data[2][1])}
         fused, records = read_artifacts(family, rows)
-    finally:
-        for var, value in saved.items():
-            if value is None:
-                os.environ.pop(var, None)
-            else:
-                os.environ[var] = value
     if any(o != "hit" for outcomes in recorder.sa_outcomes for o in outcomes.values()):
         raise AssertionError(f"{family} fused: SA was not a load ({recorder.sa_outcomes})")
     os.environ["TIP_ASSETS"] = src
@@ -2752,6 +2859,402 @@ def run_serving(params: dict, data: dict, dev, late_params) -> dict:
     return record
 
 
+# -- the study-execution layer (phase 7d of the docstring) -------------------------
+
+
+def read_streams(obs_dir: str) -> list:
+    """Every complete record of the event streams under ``obs_dir``."""
+    records = []
+    for name in sorted(os.listdir(obs_dir)) if os.path.isdir(obs_dir) else ():
+        if not (name.startswith("events-") and name.endswith(".jsonl")):
+            continue
+        with open(os.path.join(obs_dir, name)) as f:
+            for line in f:
+                try:
+                    records.append(json.loads(line))
+                except ValueError:
+                    continue  # a torn tail line
+    return records
+
+
+def worker_records(records: list) -> dict:
+    """Per scheduler worker (pid) in ``records``: its platform and index (its
+    stream's meta), the runs it ran with each run's start and seconds (its
+    ``run`` spans) and the kernel launches of its last flushed metrics."""
+    workers = {}
+    for rec in records:
+        w = workers.setdefault(rec.get("pid"), {"platform": None, "worker": None, "runs": {},
+                                                "errors": [], "launches": {}})
+        if rec.get("type") == "meta":
+            w["platform"], w["worker"] = rec.get("platform"), rec.get("worker")
+        elif rec.get("type") == "span" and rec.get("name") == "run":
+            attrs = rec.get("attrs", {})
+            for run in attrs.get("model_ids") or [attrs.get("model_id")]:
+                w["runs"][run] = (rec["ts"], rec["dur"])
+            if "error" in rec:
+                w["errors"].append(rec["error"])
+        elif rec.get("type") == "metrics":
+            w["launches"] = {name[len("kernel."):-len(".launches")]: value
+                             for name, value in rec.get("gauges", {}).items()
+                             if name.startswith("kernel.") and name.endswith(".launches")}
+    return {pid: w for pid, w in workers.items() if w["worker"] is not None}
+
+
+def sched_faults(workers: dict, runs, kernels, platform: str = "default",
+                 concurrent: int = SCHED_WORKERS) -> list:
+    """What is wrong with a scheduled phase's workers: a run that ran on no
+    worker or on two, an error, a worker on another platform than
+    ``platform``, a worker that launched one of ``kernels`` no time, fewer
+    than ``concurrent`` workers running at once."""
+    faults, ran_on = [], {}
+    busy = {pid: w for pid, w in workers.items() if w["runs"]}
+    for pid, w in busy.items():
+        for run in w["runs"]:
+            ran_on.setdefault(run, []).append(pid)
+        if w["errors"]:
+            faults.append(f"worker {pid} failed: {w['errors']}")
+        if w["platform"] != platform:
+            faults.append(f"worker {pid} ran {sorted(w['runs'])} on platform {w['platform']}, "
+                          f"want {platform}")
+        for name in kernels:
+            if not w["launches"].get(name, 0) > 0:
+                faults.append(f"worker {pid} launched {name} {w['launches'].get(name, 0)} times")
+    for run in runs:
+        if len(ran_on.get(run, [])) != 1:
+            faults.append(f"run {run} ran on {len(ran_on.get(run, []))} workers")
+    if sorted(ran_on) != sorted(runs):
+        faults.append(f"the workers ran {sorted(ran_on)}, want {sorted(runs)}")
+    spans = [span for w in busy.values() for span in w["runs"].values()]
+    overlap = min((s + d for s, d in spans), default=0) - max((s for s, _ in spans), default=0)
+    if len(busy) < concurrent or overlap <= 0:
+        faults.append(f"{len(busy)} workers ran, overlapping {overlap:.3f} s; want {concurrent} "
+                      "at once")
+    return faults
+
+
+def artifact_faults(family: str, got_root: str, want_roots: dict) -> list:
+    """Per run, the priority artifacts under ``got_root`` against those under
+    ``want_roots[run]``: the same names, every file byte-equal; the time
+    records' names equal (their seconds differ by nature)."""
+    faults = []
+    for run, want_root in want_roots.items():
+        for sub, compare in (("priorities", True), ("times", False)):
+            def names(root):
+                folder = os.path.join(root, sub)
+                return sorted(n for n in os.listdir(folder) if n.startswith(f"{family}_")
+                              and n.split("_")[2] == str(run))
+
+            got, want = names(got_root), names(want_root)
+            if got != want:
+                faults.append(f"run {run} {sub}: {len(got)} files, want {len(want)} "
+                              f"(apart: {sorted(set(got) ^ set(want))[:5]})")
+            for name in sorted(set(got) & set(want)) if compare else ():
+                with open(os.path.join(got_root, sub, name), "rb") as f, \
+                        open(os.path.join(want_root, sub, name), "rb") as g:
+                    if f.read() != g.read():
+                        faults.append(f"run {run}: {name} differs from the in-process walk's")
+    return faults
+
+
+def resume_faults(reran: dict, journaled, missing) -> list:
+    """A journaled resume ran each missing run once and no journaled run
+    (``reran``: run -> attempts in the resume)."""
+    faults = [f"journaled run {run} ran again ({reran[run]} attempts)"
+              for run in sorted(journaled) if reran.get(run, 0)]
+    faults += [f"missing run {run} ran {reran.get(run, 0)} times in the resume"
+               for run in sorted(missing) if reran.get(run, 0) != 1]
+    return faults
+
+
+def _attempts(marker_dir: str) -> dict:
+    out = {}
+    for name in os.listdir(marker_dir):
+        if name.startswith("attempt_"):
+            with open(os.path.join(marker_dir, name)) as f:
+                out[int(name[len("attempt_"):])] = len(f.read().split())
+    return out
+
+
+def drills_main(root: str) -> int:
+    """(internal) Phase 7d's drills, run in a fresh interpreter started with
+    ``python -c`` so that its workers, spawned for synthetic phases, import
+    no torch: on two ``default`` (card) workers, (1) a ``worker.run`` kill
+    of one run (requeued onto a CPU worker, the JAX contract for a
+    synthetic phase; completes), (2) a wedge past
+    ``run_timeout_s`` (reaped, requeued, counted), (3) a journaled phase
+    with two runs failing, then its resume with the plan cleared, which
+    runs only the two missing runs. Prints the report as its last line."""
+    from simple_tip_tpu_torch.parallel.run_scheduler import run_phase_parallel
+    from simple_tip_tpu_torch.resilience import RunJournal
+
+    obs_dir = os.path.join(root, "obs")
+    os.environ.update({"TIP_ASSETS": root, "TIP_OBS_DIR": obs_dir, "TIP_JOURNAL": "off",
+                       "TIP_FAULT_STATE": os.path.join(root, "fault_state")})
+    platforms = ["default"] * SCHED_WORKERS
+    report, faults = {}, []
+
+    def counters():
+        return dict(obs.metrics_snapshot()["counters"])
+
+    def drill(name, phase, runs, kwargs, plan=None, timeout=SCHED_DRILL_RUN_TIMEOUT_S,
+              markers=None):
+        marker_dir = os.path.join(root, markers or name)
+        os.makedirs(marker_dir, exist_ok=True)
+        os.environ["TIP_FAULT_PLAN"] = json.dumps(plan) if plan else ""
+        before, t0 = counters(), time.perf_counter()
+        error = None
+        try:
+            run_phase_parallel("sched-drill", phase, runs, SCHED_WORKERS,
+                               phase_kwargs={"marker_dir": marker_dir, **kwargs},
+                               worker_platforms=platforms, run_timeout_s=timeout)
+        except RuntimeError as e:
+            error = str(e)
+        after = counters()
+        delta = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("scheduler.worker_deaths", "scheduler.timeouts",
+                           "scheduler.requeues", "scheduler.journal_skips")}
+        done = sorted(int(n[len("run_"):-len(".txt")]) for n in os.listdir(marker_dir)
+                      if n.startswith("run_"))
+        report[name] = {"seconds": time.perf_counter() - t0, "counters": delta, "done": done,
+                        "attempts": _attempts(marker_dir), "error": error}
+        return report[name]
+
+    kill = drill("kill", "_test_fault", [0, 1, 2, 3], {}, plan={"faults": [
+        {"site": "worker.run", "kind": "die", "match": {"model_id": [1]}, "times": 1,
+         "delay_s": 0.5}]})
+    if kill["error"] or kill["done"] != [0, 1, 2, 3] or kill["counters"]["scheduler.worker_deaths"] \
+            != 1 or kill["counters"]["scheduler.requeues"] != 1:
+        faults.append(f"kill drill: {kill}")
+    wedge = drill("wedge", "_test_wedge", [0, 1, 2], {"wedge_ids": (0,)},
+                  timeout=SCHED_WEDGE_TIMEOUT_S)
+    if wedge["error"] or wedge["done"] != [0, 1, 2] or wedge["attempts"].get(0) != 2 or \
+            wedge["counters"]["scheduler.timeouts"] != 1 or \
+            wedge["counters"]["scheduler.requeues"] != 1:
+        faults.append(f"wedge drill: {wedge}")
+    os.environ["TIP_JOURNAL"] = os.path.join(root, "journal", "runs.jsonl")
+    runs, missing = list(range(6)), {4, 5}
+    first = drill("journaled", "_test_fault", runs, {}, plan={"faults": [
+        {"site": "worker.run", "kind": "error", "match": {"model_id": sorted(missing)},
+         "times": 0}]})
+    journaled = RunJournal(os.environ["TIP_JOURNAL"], "sched-drill", "_test_fault").completed()
+    if not (first["error"] and "2/6" in first["error"]) or journaled != set(runs) - missing:
+        faults.append(f"journaled drill: {first}, journal {sorted(journaled)}")
+    resume = drill("resume", "_test_fault", runs, {}, markers="journaled")
+    reran = {run: n - first["attempts"].get(run, 0) for run, n in resume["attempts"].items()}
+    faults += resume_faults(reran, journaled, missing)
+    if resume["error"] or resume["counters"]["scheduler.journal_skips"] != len(journaled):
+        faults.append(f"resume drill: {resume}")
+    requeues = [r["attrs"] for r in read_streams(obs_dir)
+                if r.get("type") == "event" and r.get("name") == "scheduler.requeue"]
+    workers = worker_records(read_streams(obs_dir))
+    retry_platforms = sorted({w["platform"] for w in workers.values()
+                              if w["platform"] == "cpu"})
+    if sorted((r["model_id"], r["platform"]) for r in requeues) != [(0, "cpu"), (1, "cpu")] or \
+            retry_platforms != ["cpu"]:
+        faults.append(f"requeue events {requeues}, CPU workers {retry_platforms}")
+    report["requeue_events"] = requeues
+    report["faults"] = faults
+    print(json.dumps(report))
+    return 1 if faults else 0
+
+
+def write_onramp_raw(folder: str, seed: int) -> dict:
+    """The raw layouts ``data/real_onramp.prepare_all`` reads, under
+    ``folder``, from ``seed``: the 15 MNIST-C corruption folders at the
+    release's 10,000 test images each, a CIFAR-10-C release of
+    ``ONRAMP_CIFAR``, the fmnist-C pair (10,000) and ``imdb/raw`` of
+    English-like texts over the bundled thesaurus (``ONRAMP_TEXTS``).
+    Returns the MNIST-C arrays by corruption."""
+    from simple_tip_tpu_torch.data import real_onramp
+
+    rng = np.random.default_rng(seed)
+    n = real_onramp.OOD_SIZE
+    mnist_c = {}
+    for corr in real_onramp.MNIST_CORRUPTION_TYPES:
+        sub = os.path.join(folder, "mnist_c", corr)
+        os.makedirs(sub)
+        mnist_c[corr] = (rng.integers(0, 256, size=(n, 28, 28), dtype=np.uint8),
+                         rng.integers(0, 10, size=n).astype(np.int64))
+        np.save(os.path.join(sub, "test_images.npy"), mnist_c[corr][0])
+        np.save(os.path.join(sub, "test_labels.npy"), mnist_c[corr][1])
+    names, rows = ONRAMP_CIFAR
+    cifar = os.path.join(folder, "CIFAR-10-C")
+    os.makedirs(cifar)
+    np.save(os.path.join(cifar, "labels.npy"), rng.integers(0, 10, size=rows).astype(np.int64))
+    for corr in names:
+        np.save(os.path.join(cifar, f"{corr}.npy"),
+                rng.integers(0, 256, size=(rows, 32, 32, 3), dtype=np.uint8))
+    np.save(os.path.join(folder, "fmnist-c-test.npy"),
+            rng.integers(0, 256, size=(n, 28, 28), dtype=np.uint8))
+    np.save(os.path.join(folder, "fmnist-c-test-labels.npy"),
+            rng.integers(0, 10, size=n).astype(np.int64))
+    asset = os.path.join(os.path.dirname(image_corruptor.__file__), "assets",
+                         "en_thesaurus.jsonl")
+    with open(asset) as f:
+        base_words = [json.loads(line)["word"] for line in f]
+    n_train, n_test = ONRAMP_TEXTS
+    texts, labels = synthetic.english_like_texts(seed, n_train + n_test, base_words=base_words)
+    raw = os.path.join(folder, "imdb", "raw")
+    os.makedirs(raw)
+    for split, part in (("train", range(n_train)), ("test", range(n_train, n_train + n_test))):
+        with open(os.path.join(raw, f"{split}.jsonl"), "w") as f:
+            for i in part:
+                f.write(json.dumps({"text": texts[i], "label": int(labels[i])}) + "\n")
+    return mnist_c
+
+
+def onramp_faults(folder: str, mnist_c: dict, report: dict, ood_x, n_test: int) -> list:
+    """The onramp's results against what was written: every dataset built,
+    each MNIST-C slice byte-equal to its corruption's rows (in the cache and,
+    scaled as the loader scales it, in ``load_mnist``'s OOD set, ``ood_x``,
+    whose first ``n_test`` rows before the seed-0 mix are the nominal set)."""
+    from simple_tip_tpu_torch.data import real_onramp
+
+    faults = [f"onramp {name}: {report.get(name)}" for name in
+              ("mnist_c", "cifar10_c", "fmnist_c", "imdb") if report.get(name) != "built"]
+    cache = np.load(os.path.join(folder, "mnist_c_images.npy"))
+    labels = np.load(os.path.join(folder, "mnist_c_labels.npy"))
+    unmixed = np.empty_like(ood_x)
+    unmixed[np.random.default_rng(0).permutation(len(ood_x))] = ood_x
+    loaded = unmixed[n_test:]
+    per = -(-real_onramp.OOD_SIZE // len(real_onramp.MNIST_CORRUPTION_TYPES))
+    for i, corr in enumerate(real_onramp.MNIST_CORRUPTION_TYPES):
+        lo, hi = i * per, min(real_onramp.OOD_SIZE, (i + 1) * per)
+        images, want_labels = mnist_c[corr][0][lo:hi], mnist_c[corr][1][lo:hi]
+        if cache[lo:hi, ..., 0].tobytes() != images.tobytes() or \
+                labels[lo:hi].tobytes() != want_labels.tobytes():
+            faults.append(f"onramp mnist_c {corr}: the cache's slice differs from the written rows")
+        if loaded[lo:hi].tobytes() != (images.astype("float32") / 255.0)[..., None].tobytes():
+            faults.append(f"onramp mnist_c {corr}: load_mnist's rows differ from the written ones")
+    return faults
+
+
+def run_onramp(folder: str, data_dir: str, seed: int, dev) -> dict:
+    """Phase 7d's onramp: the raw layouts written under ``folder`` with
+    MNIST's nominal archive beside them, ``prepare_all`` on ``dev`` (IMDB's
+    corruption on the card), then the loaders on ``folder``."""
+    from simple_tip_tpu_torch.data import real_onramp
+
+    mnist_c = write_onramp_raw(folder, seed)
+    os.symlink(os.path.join(data_dir, "mnist.npz"), os.path.join(folder, "mnist.npz"))
+    t0 = time.perf_counter()
+    report = real_onramp.prepare_all(folder, device=dev)
+    prepare_s = time.perf_counter() - t0
+    with patched_env({"TIP_DATA_DIR": folder}):
+        clear_loaders()
+        try:
+            presence = {name: loaders.dataset_presence(name) for name in ("mnist", "imdb")}
+            _, (x_test, _), (ood_x, _) = loaders.load_mnist(device=dev)
+            (imdb_train, _), (imdb_test, _), (imdb_ood, _) = loaders.load_imdb(device=dev)
+        finally:
+            clear_loaders()
+    faults = onramp_faults(folder, mnist_c, report, ood_x, len(x_test))
+    corrupted = np.load(os.path.join(folder, "imdb", "x_corrupted.npy"))
+    n_train, n_test = ONRAMP_TEXTS
+    if presence != {"mnist": "real", "imdb": "real"} or imdb_train.shape != (n_train, 100) or \
+            imdb_test.shape != (n_test, 100) or imdb_ood.shape != (2 * n_test, 100) or \
+            not (corrupted != imdb_test).any():
+        faults.append(f"onramp loaders: {presence}, imdb {imdb_train.shape} {imdb_test.shape} "
+                      f"{imdb_ood.shape}, changed tokens {int((corrupted != imdb_test).sum())}")
+    return {"report": report, "prepare_s": prepare_s, "presence": presence,
+            "imdb_changed_tokens": int((corrupted != imdb_test).sum()), "faults": faults}
+
+
+def run_sched_phase(data_dir: str, dev, root: str, seed: int, inproc_run0_s: float) -> dict:
+    """Phase 7d. (1) The watchdog on the card: ``probe_local_chips`` and
+    ``ensure_responsive_backend``. (2) MNIST run 1's in-process
+    ``cli.main --phase test_prio`` walk (its fits into phase 7's caches), then
+    ``cli.main(... "--runs", "0,1", "--workers", "2")`` with
+    ``TIP_WORKER_PLATFORMS=default,default`` on phase 7's caches (every SA
+    fit a load), each worker's stream under ``TIP_OBS_DIR``: each run on one
+    card worker, both at once, each worker launching B1 and B2, every
+    artifact byte-equal to the in-process walk's (run 0: phase 7's), both
+    runs journaled. (3) The drills in a fresh interpreter (``drills_main``).
+    (4) The onramp (``run_onramp``)."""
+    from simple_tip_tpu_torch.resilience import RunJournal
+    from simple_tip_tpu_torch.utils import device_watchdog
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cards = device_watchdog.probe_local_chips()
+    probe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    platform = device_watchdog.ensure_responsive_backend() if dev.type == "cuda" else "cpu"
+    ensure_s = time.perf_counter() - t0
+    watchdog = {"cards": cards, "probe_local_chips_s": probe_s, "platform": platform,
+                "ensure_responsive_backend_s": ensure_s}
+    print(json.dumps({"sched_watchdog": watchdog}))
+    faults = [] if dev.type == "cpu" or (cards >= 1 and platform == "cuda") else [
+        f"watchdog: {watchdog}"]
+
+    family, src = SCHED_FAMILY, os.path.join(root, "train")
+    inproc, sched = os.path.join(root, "sched_inproc"), os.path.join(root, "sched")
+    for folder in (inproc, sched):
+        shutil.copytree(os.path.join(src, "models", family), os.path.join(folder, "models", family))
+    env = {"TIP_SA_CACHE_DIR": os.path.join(src, "sa_fit_cache"),
+           "TIP_COV_STATS_CACHE_DIR": os.path.join(src, "coverage_stats_cache"),
+           "TIP_FUSED_CHAIN": None, "TIP_CHAIN_GROUP": None, "TIP_FAULT_PLAN": None}
+    runs = ",".join(str(r) for r in SCHED_RUNS)
+    with patched_env({**env, "TIP_ASSETS": inproc}):
+        t0 = time.perf_counter()
+        run_cli("--phase", "test_prio", "--case-study", family, "--runs", "1", *device_args(dev))
+        inproc_run1_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the workers share the card with this process
+    obs_dir = os.path.join(root, "sched_obs")
+    with patched_env({**env, "TIP_ASSETS": sched, "TIP_OBS_DIR": obs_dir,
+                      "TIP_WORKER_PLATFORMS": ",".join(["default"] * SCHED_WORKERS)}):
+        obs.reset()
+        t0 = time.perf_counter()
+        run_cli("--phase", "test_prio", "--case-study", family, "--runs", runs,
+                "--workers", str(SCHED_WORKERS), *device_args(dev))
+        sched_s = time.perf_counter() - t0
+        obs.reset()
+    records = read_streams(obs_dir)
+    workers = worker_records(records)
+    kernels = PATHS[family]["kernels"] if dev.type == "cuda" else ()
+    faults += sched_faults(workers, SCHED_RUNS, kernels,
+                           platform="default" if dev.type == "cuda" else "cpu")
+    faults += artifact_faults(family, sched, {0: src, 1: inproc})
+    journaled = RunJournal(os.path.join(sched, "journal", "runs.jsonl"), family,
+                           "test_prio").completed()
+    if journaled != set(SCHED_RUNS):
+        faults.append(f"journal holds {sorted(journaled)}, want {list(SCHED_RUNS)}")
+    worker_s = {run: d for w in workers.values() for run, (_, d) in w["runs"].items()}
+    scheduler = {"sched_phase": family, "runs": list(SCHED_RUNS), "workers": SCHED_WORKERS,
+                 "scheduler_s": sched_s, "worker_run_s": worker_s,
+                 "in_process_s": {0: inproc_run0_s, 1: inproc_run1_s},
+                 "launches": {pid: w["launches"] for pid, w in workers.items() if w["runs"]},
+                 "platforms": {pid: w["platform"] for pid, w in workers.items()}}
+    print(json.dumps(scheduler))
+
+    drill_root = os.path.join(root, "sched_drills")
+    os.makedirs(drill_root)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.drills_main(sys.argv[1]))",
+         drill_root], cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=SCHED_DRILL_TIMEOUT_S)
+    drills_s = time.perf_counter() - t0
+    lines = child.stdout.strip().splitlines()
+    drills = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {
+        "faults": [f"drills exited {child.returncode}: {child.stderr[-2000:]}"]}
+    faults += drills["faults"] or ([] if child.returncode == 0 else
+                                   [f"drills exited {child.returncode}"])
+    print(json.dumps({"sched_drills": drills, "drills_s": drills_s}))
+
+    onramp = run_onramp(os.path.join(root, "onramp"), data_dir, seed, dev)
+    faults += onramp["faults"]
+    print(json.dumps({"onramp": onramp}))
+    record = {"watchdog": watchdog, "scheduler": scheduler, "drills_s": drills_s,
+              "drills": {k: v for k, v in drills.items() if k != "faults"}, "onramp": onramp,
+              "faults": faults, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"sched_phase_s": record["phase_s"], "faults": faults}))
+    if faults:
+        raise AssertionError("study execution: " + "; ".join(faults[:20]))
+    return record
+
+
 def al_spec(data):
     """MNIST's registry study for the AL phase: one-epoch retrains and the
     registry's AL settings (checked), its training base cut to the first
@@ -2886,19 +3389,34 @@ def al_selections(params, datasets, x_train, k: int, device) -> tuple:
     return sel, unc, nc_scores, sa_scores, time.perf_counter() - t0
 
 
-def compare_al_selections(params, data, dev) -> dict:
-    """The four selection builders on a small subset (``AL_CHECK``) on the
-    card and on the CPU: rows moved per selection, gated as phase 10 of the
-    module docstring says."""
+def al_check_datasets(data):
+    """``AL_CHECK``'s split of the nominal and OOD subsets (seed 0)."""
     n_train, n_test, k = AL_CHECK
     (x_tr, _), (x_nom, y_nom), (x_ood, y_ood) = data
-    datasets = eval_active_learning._shuffle_and_split_datasets(
+    return eval_active_learning._shuffle_and_split_datasets(
         0, x_nom[:n_test], y_nom[:n_test], x_ood[:n_test], y_ood[:n_test], AL_OBSERVED_SHARE)
+
+
+def start_al_selections_cpu(tree, data, root: str) -> "CpuReference":
+    """The CPU side of ``compare_al_selections``, started in a child process
+    beside the card phases (from the flax tree of its run)."""
+    n_train, _, k = AL_CHECK
+    return CpuReference(os.path.join(root, "al_selections_cpu"), "al_selections", tree=tree,
+                        datasets=al_check_datasets(data), x_train=data[0][0][:n_train], k=k)
+
+
+def compare_al_selections(params, data, dev, cpu_side: "CpuReference") -> dict:
+    """The four selection builders on a small subset (``AL_CHECK``) on the
+    card, and on the CPU in a child process (``start_al_selections_cpu``):
+    rows moved per selection, gated as phase 10 of the module docstring
+    says."""
+    n_train, n_test, k = AL_CHECK
+    x_tr = data[0][0]
+    datasets = al_check_datasets(data)
     with caches_off():
         card, unc, nc_card, sa_card, card_s = al_selections(params, datasets, x_tr[:n_train],
                                                             k, dev)
-        cpu, unc_cpu, nc_cpu, sa_cpu, cpu_s = al_selections(params, datasets, x_tr[:n_train],
-                                                            k, torch.device("cpu"))
+    (cpu, unc_cpu, nc_cpu, sa_cpu, cpu_s), cpu_waited_s = cpu_side.result()
     if list(card) != list(cpu):
         raise AssertionError("AL selections: card and CPU built other selections")
     moved, breaches = {}, []
@@ -2941,7 +3459,7 @@ def compare_al_selections(params, data, dev) -> dict:
     }
     report = {"rows": [n_train, n_test, k], "sa_variants": AL_CHECK_SA, "moved_by_kind": counted,
               "moved": {key: v for key, v in moved.items() if v}, "card_s": card_s,
-              "cpu_s": cpu_s}
+              "cpu_s": cpu_s, "cpu_waited_s": cpu_waited_s}
     print(json.dumps({"al_selections_card_vs_cpu": report}))
     if breaches:
         raise AssertionError("AL selections card vs CPU: " + "; ".join(breaches))
@@ -3055,11 +3573,11 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="also write the full record as JSON here")
     parser.add_argument("--warm-cache", default=None, metavar="FAMILY",
                         help="(internal) the fresh-interpreter side of the cache phase")
-    parser.add_argument("--mlsa-cpu", default=None, metavar="PATH",
-                        help="(internal) the CPU side of the full-width pc-mlsa read")
+    parser.add_argument("--cpu-ref", default=None, metavar="PATH",
+                        help="(internal) the CPU side of a card-against-CPU check")
     args = parser.parse_args()
-    if args.mlsa_cpu:
-        return mlsa_cpu_main(args.mlsa_cpu)
+    if args.cpu_ref:
+        return cpu_ref_main(args.cpu_ref)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -3108,6 +3626,7 @@ def main() -> int:
             params[family] = params_from_jax(trees[family])
         classes = {family: predicted_classes(family, params[family], data[family][0][0], dev)
                    for family in PATHS}
+        al_cpu = start_al_selections_cpu(trees[AL_FAMILY], data[AL_FAMILY], root)
 
         kernels = [
             check_fused_forward(params["mnist"], data["mnist"][1][0], dev),
@@ -3146,12 +3665,13 @@ def main() -> int:
         print(json.dumps({"chain_phase_s": chain_phase_s, "gpu": smi}))
         serving = run_serving(params, data, dev, late_params=group_params[1])
         print(json.dumps({"serving_phase_s": serving["phase_s"], "gpu": smi}))
+        sched = run_sched_phase(os.path.join(root, "datasets"), dev, root, args.seed,
+                                paths[SCHED_FAMILY]["slice_s"])
+        print(json.dumps({"sched_phase_s": sched["phase_s"], "gpu": smi}))
         active = run_active_learning(data[AL_FAMILY], dev, root)
         for family in PATHS:
-            full_width = paths[family].pop("mlsa_full_width")
-            if full_width is not None:
-                paths[family]["sa_small"]["mlsa_full_width"] = full_width.finish()
-        al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev)
+            paths[family]["sa_small"] = paths[family]["sa_small"].finish()
+        al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev, al_cpu)
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
         evaluation = run_evaluation_and_check(root)
     finally:
@@ -3167,6 +3687,7 @@ def main() -> int:
                       "fused_paths_s": {f: r["slice_s"] for f, r in fused.items()},
                       "chain_phase_s": chain_phase_s,
                       "serving_phase_s": serving["phase_s"],
+                      "sched_phase_s": sched["phase_s"],
                       "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
                       "command_s": time.perf_counter() - START}))
 
@@ -3186,8 +3707,13 @@ def main() -> int:
                 k["serving_launches"] = serving["launches"][k["name"]]
         if k["name"] in PATHS[AL_FAMILY]["kernels"]:
             k["al_launches"] = active["launches"][k["name"]]
+        if k["name"] in PATHS[SCHED_FAMILY]["kernels"]:
+            k["sched_worker_launches"] = sorted(
+                w[k["name"]] for w in sched["scheduler"]["launches"].values())
     b2 = dsa_nearest_entry(dsa_by_path, launches_by_path("dsa_nearest"))
     b2["al_launches"] = active["launches"]["dsa_nearest"]
+    b2["sched_worker_launches"] = sorted(
+        w["dsa_nearest"] for w in sched["scheduler"]["launches"].values())
     kernels.insert(1, b2)
     print(json.dumps({"kernels": kernels}))
     if args.out:
@@ -3200,7 +3726,7 @@ def main() -> int:
                        "active_learning": active, "al_selections": al_check,
                        "fused_chain": {"paths": fused, "graph_vs_eager": graph_eager,
                                        "group_runner": group},
-                       "serving": serving,
+                       "serving": serving, "study_execution": sched,
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

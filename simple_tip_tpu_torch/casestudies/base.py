@@ -8,13 +8,20 @@ Counterpart of the JAX package's ``casestudies/base.py`` ``CaseStudy``:
   package scores the other's runs; existing runs are reused, not retrained;
 - ``train`` trains the missing runs through one ``train_ensemble`` (one
   card, members in turn);
-- ``run_prio_eval`` runs ``engine/eval_prioritization.evaluate`` per run
-  (no worker processes), or, with ``TIP_FUSED_CHAIN`` on and
-  ``TIP_CHAIN_GROUP`` above 1, ``evaluate_group`` over groups of G runs;
+- ``run_prio_eval`` runs ``engine/eval_prioritization.evaluate`` per run,
+  or, with ``TIP_FUSED_CHAIN`` on and ``TIP_CHAIN_GROUP`` above 1,
+  ``evaluate_group`` over groups of G runs;
 - ``run_active_learning_eval`` runs ``engine/eval_active_learning.evaluate``
   per run, its retrains through ``parallel/al_ensemble.py``;
 - ``collect_activations`` dumps every tap (``engine/activation_persistor.py``,
-  the ``at_collection`` phase).
+  the ``at_collection`` phase);
+- with ``num_workers`` above 1 those three phases fan their runs out over
+  worker processes (``parallel/run_scheduler.py``, ``_dispatch_workers``):
+  each worker resolves the study by name with ``get_case_study``, runs on
+  the card (``default``), or on the CPU (``cpu``) only where
+  ``device="cpu"`` or ``TIP_WORKER_PLATFORMS`` asks for it, under this
+  process's cuDNN flags; with ``TIP_CHAIN_GROUP`` G above 1 a
+  work unit is a group of G runs.
 
 A spec's ``loader(device=...)`` returns the three (x, y) pairs; each phase
 passes it the phase's device, on which the image loaders generate a
@@ -32,6 +39,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from simple_tip_tpu_torch.bridge import params_from_jax, params_to_jax
 from simple_tip_tpu_torch.config import subdir
@@ -133,15 +141,66 @@ class CaseStudy:
             self.save_params(model_id, unstack(stacked, i))
         return histories
 
-    def run_prio_eval(self, model_ids: List[int], device: DeviceLike = None) -> Dict[int, tuple]:
+    def _dispatch_workers(self, phase: str, model_ids: List[int], num_workers: int,
+                          device: DeviceLike, group_size: int = 1) -> None:
+        """Fan the phase out over ``num_workers`` worker processes
+        (``parallel/run_scheduler.run_phase_parallel``).
+
+        ``device="cpu"`` makes every worker a CPU worker. Otherwise every
+        worker runs on the card (one card serves several processes), or
+        where ``TIP_WORKER_PLATFORMS`` is set, on the platforms it names:
+        that and ``device="cpu"`` are the only ways onto the CPU. A
+        placement with a card worker counts the cards in a subprocess
+        (``probe_local_chips``: this process opens no CUDA context before
+        it spawns card workers) and raises ``BackendUnavailable`` when none
+        answers. Each worker runs under this process's cuDNN flags
+        (``device.backend_flags``)."""
+        from simple_tip_tpu_torch.device import backend_flags
+        from simple_tip_tpu_torch.parallel.run_scheduler import (
+            default_worker_platforms,
+            run_phase_parallel,
+        )
+        from simple_tip_tpu_torch.resilience import BackendUnavailable
+        from simple_tip_tpu_torch.utils.device_watchdog import probe_local_chips
+
+        if device is not None and torch.device(device).type == "cpu":
+            platforms = ["cpu"] * num_workers
+        elif os.environ.get("TIP_WORKER_PLATFORMS", "").strip():
+            platforms = default_worker_platforms(num_workers, 0)  # the override's cycle
+        else:
+            platforms = ["default"] * num_workers
+        if "default" in platforms and probe_local_chips() == 0:
+            raise BackendUnavailable(
+                f"{phase}: no CUDA card answered the probe for the worker "
+                "processes; pass device='cpu' (--device cpu) to run them on the CPU"
+            )
+        run_phase_parallel(
+            self.spec.name,
+            phase,
+            list(model_ids),
+            num_workers,
+            worker_platforms=platforms,
+            group_size=group_size,
+            backend_flags=backend_flags(),
+        )
+
+    def run_prio_eval(self, model_ids: List[int], device: DeviceLike = None,
+                      num_workers: int = 1) -> Optional[Dict[int, tuple]]:
         """Run the test-prioritization phase for the requested runs; returns
         each run's ``(phase seconds, {SA variant: the k it chose})``. With the
         fused chain on and ``TIP_CHAIN_GROUP`` G above 1, the runs are scored
         in groups of G (``eval_prioritization.evaluate_group``; the same
-        artifacts as the per-model walk)."""
+        artifacts as the per-model walk). With ``num_workers`` above 1 (and
+        more than one run) the runs go to worker processes, a unit a run or
+        a group of G, and nothing is returned: the artifacts are the
+        result."""
+        group_size = chain_group_size() if fused_chain_enabled() else 1
+        if num_workers > 1 and len(model_ids) > 1:
+            self._dispatch_workers("test_prio", model_ids, num_workers, device,
+                                   group_size=group_size)
+            return None
         device = resolve(device)
         (x_train, _), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
-        group_size = chain_group_size() if fused_chain_enabled() else 1
         if group_size > 1 and len(model_ids) > 1:
             logger.info("[%s] grouped prioritization eval for runs %s (G=%d)",
                         self.spec.name, list(model_ids), group_size)
@@ -185,13 +244,17 @@ class CaseStudy:
         return phases
 
     def run_active_learning_eval(
-        self, model_ids: List[int], device: DeviceLike = None
-    ) -> Dict[int, eval_active_learning.ActiveLearningRun]:
+        self, model_ids: List[int], device: DeviceLike = None, num_workers: int = 1
+    ) -> Optional[Dict[int, eval_active_learning.ActiveLearningRun]]:
         """Run the active-learning phase for the requested runs; returns
         each run's step seconds and retrain epochs
         (``eval_active_learning.evaluate``). Each run's ~80 retrains train
         through ``al_retrain_ensemble``: one copy of the training set on the
-        device, each retrain's rows gathered there."""
+        device, each retrain's rows gathered there. With ``num_workers``
+        above 1 the runs go to worker processes and nothing is returned."""
+        if num_workers > 1 and len(model_ids) > 1:
+            self._dispatch_workers("active_learning", model_ids, num_workers, device)
+            return None
         device = resolve(device)
         (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
         eye = np.eye(self.spec.num_classes, dtype=np.float32)
@@ -232,8 +295,13 @@ class CaseStudy:
             )
         return runs
 
-    def collect_activations(self, model_ids: List[int], device: DeviceLike = None) -> None:
-        """Dump every tap of the requested runs (the at_collection phase)."""
+    def collect_activations(self, model_ids: List[int], device: DeviceLike = None,
+                            num_workers: int = 1) -> None:
+        """Dump every tap of the requested runs (the at_collection phase),
+        over worker processes when ``num_workers`` is above 1."""
+        if num_workers > 1 and len(model_ids) > 1:
+            self._dispatch_workers("at_collection", model_ids, num_workers, device)
+            return
         device = resolve(device)
         (x_train, y_train), (x_test, y_test), (ood_x, ood_y) = self.spec.loader(device=device)
         for model_id in model_ids:

@@ -5,19 +5,26 @@ studies and run-id syntax:
 
     python -m simple_tip_tpu_torch.cli --phase training --case-study mnist --runs 0-4
     python -m simple_tip_tpu_torch.cli --phase test_prio --case-study mnist --runs 0
+    python -m simple_tip_tpu_torch.cli --phase test_prio --case-study mnist --runs 0-9 --workers 2
     python -m simple_tip_tpu_torch.cli --phase evaluation --eval test_prio
     python -m simple_tip_tpu_torch.cli --phase check --case-study mnist
 
 The phases that run models (training, test_prio, active_learning,
 at_collection) run on the CUDA card unless ``--device cpu`` is given; with
 no card and no ``--device cpu`` the command fails before it reads or writes
-anything. There is no fallback to the CPU. ``evaluation`` and ``check`` read
+anything. On the card the device watchdog
+(``utils/device_watchdog.ensure_responsive_backend``) first runs a small op
+in a subprocess; an unresponsive card (or an open breaker) exits 2 with the
+reason. There is no fallback to the CPU. ``--workers N`` above 1 (default
+``TIP_NUM_WORKERS``) runs test_prio, active_learning and at_collection over
+N worker processes (``parallel/run_scheduler.py``; ``TIP_WORKER_PLATFORMS``
+places them, ``TIP_JOURNAL`` / ``TIP_ASSETS`` journal them, and with
+``--device cpu`` every worker is a CPU worker); training ignores it, as in
+the JAX package. ``evaluation`` and ``check`` read
 the artifact bus on the host: ``--eval test_prio`` and ``active_learning``
 write the two tables (CSV and the paper subset's LaTeX),
 ``test_prio_statistics`` and ``active_learning_statistics`` the pairwise
-Wilcoxon and effect-size CSVs (their heatmaps are not ported). Worker
-processes (``--workers`` above 1, the JAX package's run scheduler) are not
-ported and are refused.
+Wilcoxon and effect-size CSVs (their heatmaps are not ported).
 """
 
 import argparse
@@ -75,17 +82,19 @@ def _run_eval(which: str, case_studies=ALL_CASE_STUDIES):
         raise ValueError(f"Unknown eval type: {which}")
 
 
-def dispatch_phase(cs, phase: str, runs, device):
+def dispatch_phase(cs, phase: str, runs, device, num_workers: int = 1):
     """Run one model phase on a ``CaseStudy`` on ``device``; returns what
-    the phase returns (its records per run)."""
+    the phase returns (its records per run; nothing when ``num_workers``
+    above 1 sends the runs to worker processes). Training ignores
+    ``num_workers``."""
     if phase == "training":
         return cs.train(runs, device=device)
     if phase == "test_prio":
-        return cs.run_prio_eval(runs, device=device)
+        return cs.run_prio_eval(runs, device=device, num_workers=num_workers)
     if phase == "active_learning":
-        return cs.run_active_learning_eval(runs, device=device)
+        return cs.run_active_learning_eval(runs, device=device, num_workers=num_workers)
     if phase == "at_collection":
-        return cs.collect_activations(runs, device=device)
+        return cs.collect_activations(runs, device=device, num_workers=num_workers)
     raise ValueError(f"Unknown phase: {phase}")
 
 
@@ -106,7 +115,8 @@ def main(argv=None) -> int:
         "--workers",
         type=int,
         default=int(os.environ.get("TIP_NUM_WORKERS", "1")),
-        help="worker processes (only 1 is ported)",
+        help="worker processes for the test_prio/active_learning/at_collection "
+        "phases (default TIP_NUM_WORKERS or 1)",
     )
     parser.add_argument(
         "--device",
@@ -133,10 +143,6 @@ def main(argv=None) -> int:
     if not args.case_study:
         parser.error("--case-study is required for non-evaluation phases")
     runs = _parse_runs(args.runs)
-    if args.workers > 1:
-        print(f"--workers {args.workers}: worker processes are not ported yet (no run "
-              "scheduler in the port); run with --workers 1", file=sys.stderr)
-        return 2
 
     from simple_tip_tpu_torch.device import resolve
 
@@ -146,10 +152,22 @@ def main(argv=None) -> int:
         print(f"--device: {e}", file=sys.stderr)
         return 2
 
-    from simple_tip_tpu_torch.casestudies.base import get_case_study
+    from simple_tip_tpu_torch.resilience import BackendUnavailable
 
-    cs = get_case_study(args.case_study)
-    dispatch_phase(cs, args.phase, runs, device)
+    num_workers = max(1, args.workers)
+    try:
+        if device.type == "cuda":
+            from simple_tip_tpu_torch.utils.device_watchdog import ensure_responsive_backend
+
+            ensure_responsive_backend()
+        from simple_tip_tpu_torch.casestudies.base import get_case_study
+
+        cs = get_case_study(args.case_study)
+        dispatch_phase(cs, args.phase, runs, device, num_workers=num_workers)
+    except BackendUnavailable as e:
+        workers = f" ({num_workers} worker processes)" if num_workers > 1 else ""
+        print(f"{args.phase}{workers}: {e}", file=sys.stderr)
+        return 2
     print("Done.")
     return 0
 

@@ -45,6 +45,22 @@ def resolve(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def backend_flags() -> dict:
+    """This process's cuDNN algorithm flags, for ``apply_backend_flags`` in a
+    spawned worker (which starts with torch's defaults): the same flags pick
+    the same algorithms, so a worker's artifacts equal the parent's."""
+    return {
+        "cudnn_deterministic": bool(torch.backends.cudnn.deterministic),
+        "cudnn_benchmark": bool(torch.backends.cudnn.benchmark),
+    }
+
+
+def apply_backend_flags(cudnn_deterministic: bool, cudnn_benchmark: bool) -> None:
+    """Set the flags ``backend_flags`` read (a run scheduler's worker init)."""
+    torch.backends.cudnn.deterministic = cudnn_deterministic
+    torch.backends.cudnn.benchmark = cudnn_benchmark
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (no-op on the CPU)."""
     if device.type == "cuda":

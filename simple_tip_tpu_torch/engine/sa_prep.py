@@ -46,6 +46,7 @@ from simple_tip_tpu_torch.ops.surprise import (
     _class_predictions,
 )
 from simple_tip_tpu_torch.ops.timer import Timer
+from simple_tip_tpu_torch.resilience import faults
 from simple_tip_tpu_torch.utils.artifacts_io import atomic_write_bytes, sweep_orphan_tmp
 
 logger = logging.getLogger(__name__)
@@ -253,9 +254,16 @@ class SAFitCache:
 
     def load(self, sa_name: str, device: DeviceLike = None):
         """The cached scorer with its tensors on ``device`` (default: the
-        cache's), or None for a missing, stale or unreadable entry."""
+        cache's), or None for a missing, stale or unreadable entry.
+
+        The ``sa_cache.load`` fault seam (``resilience/faults.py``) may
+        garble the entry on disk first (``corrupt``): the read then fails
+        and the entry is a logged miss, which the refit overwrites."""
         path = self.path(sa_name)
         device = self.device if device is None else resolve(device)
+        fault = faults.maybe_inject("sa_cache.load", variant=sa_name, path=path)
+        if fault is not None and fault.kind == "corrupt":
+            faults.corrupt_file(path)
         try:
             with open(path, "rb") as f:
                 meta = pickle.load(f)

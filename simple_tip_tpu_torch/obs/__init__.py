@@ -11,16 +11,26 @@ scoring service and the resilience helpers use:
 - ``exporter``: ``/healthz``, ``/metrics``, ``/slo`` over HTTP when
   ``TIP_OBS_HTTP`` is set.
 
-Stdlib only. The JAX package's log bridge, feature store, cost model,
+- ``install_worker_logging`` (``logbridge``): a spawned worker's log
+  records to stderr and into its event stream;
+- ``record_device_memory`` / ``record_kernel_launches`` /
+  ``poll_device_memory``: the card's memory high-water and the launch
+  counts a caller hands in as gauges (the scheduler's workers flush them).
+
+Stdlib only. The JAX package's compile hook, feature store, cost model,
 alert evaluator and inspection CLI are not ported.
 """
 
+from simple_tip_tpu_torch.obs.logbridge import install_worker_logging
 from simple_tip_tpu_torch.obs.metrics import (
     counter,
     flush as flush_metrics,
     gauge,
     histogram,
+    poll_device_memory,
     quantile,
+    record_device_memory,
+    record_kernel_launches,
     snapshot as metrics_snapshot,
 )
 from simple_tip_tpu_torch.obs.tracer import (
@@ -40,9 +50,13 @@ __all__ = [
     "flush_metrics",
     "gauge",
     "histogram",
+    "install_worker_logging",
     "metrics_snapshot",
+    "poll_device_memory",
     "obs_dir",
     "quantile",
+    "record_device_memory",
+    "record_kernel_launches",
     "record_span",
     "reset",
     "reset_all",
@@ -53,8 +67,9 @@ __all__ = [
 
 def reset_all() -> None:
     """Test hook: reset the tracer, the metrics registry and the exporter."""
-    from simple_tip_tpu_torch.obs import exporter, metrics, tracer
+    from simple_tip_tpu_torch.obs import exporter, logbridge, metrics, tracer
 
+    logbridge.reset()
     tracer.reset()
     metrics.reset()
     exporter.reset()

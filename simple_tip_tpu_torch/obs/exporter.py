@@ -1,8 +1,8 @@
-"""Live telemetry plane: /healthz /metrics /slo (stdlib HTTP).
+"""Live telemetry plane: /healthz /metrics /slo /fleet (stdlib HTTP).
 
 Counterpart of the JAX package's ``obs/exporter.py``: a daemon
-``http.server`` thread that a long-lived process (the scoring engine)
-mounts with :func:`start`:
+``http.server`` thread that a long-lived process (the scoring engine, the
+run scheduler, the fleet parent) mounts with :func:`start`:
 
 - ``/healthz``  liveness and pushed component health: 200 when every
   component is ok, 503 otherwise;
@@ -10,8 +10,10 @@ mounts with :func:`start`:
   quantile windows) in Prometheus text format, rendered as the JAX
   package renders it;
 - ``/slo``      the scoring engine's ``slo_snapshot()`` (JSON), while an
-  engine serves. (The JAX package's ``/fleet`` and ``/alerts`` serve
-  modules the port does not have.)
+  engine serves;
+- ``/fleet``    the fleet parent's membership and lease view
+  (``parallel/fleet.py``), while a fleet runs. (The JAX package's
+  ``/alerts`` serves a module the port does not have.)
 
 ``TIP_OBS_HTTP`` unset / empty / ``0`` / ``off`` means no socket, no
 thread; ``<port>`` binds that port on 127.0.0.1, ``auto`` an ephemeral
@@ -245,7 +247,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply_json(200 if doc["ok"] else 503, doc)
         elif path == "/metrics":
             self._reply(200, render_metrics(), "text/plain; version=0.0.4")
-        elif path == "/slo":
+        elif path in ("/slo", "/fleet"):
             provider = _providers.get(path[1:])
             if provider is None:
                 self._reply_json(

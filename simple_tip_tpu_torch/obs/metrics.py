@@ -10,11 +10,15 @@ snapshot as one ``metrics`` event into the tracer's stream when
 atexit hook.
 
 Instruments the port feeds: ``serving.*`` (``serving/``), ``breaker.*``
-(``resilience/breaker.py``) and ``retry.*`` (``resilience/retry.py``).
-The JAX package's device-memory and compile hooks read jax's device state
-and are not ported.
+(``resilience/breaker.py``), ``retry.*`` (``resilience/retry.py``),
+``scheduler.*`` / ``journal.*`` / ``lease.*`` / ``fleet.*`` / ``faults.*``
+(the run scheduler and its resilience layer), the card's memory high-water
+(``record_device_memory``, the JAX names) and kernel launch counts handed
+in by the caller (``record_kernel_launches``). The JAX package's compile hook
+(``install_jax_hooks``) reads jax's compiler events and has no counterpart.
 """
 
+import sys
 import threading
 import time
 
@@ -292,6 +296,44 @@ def flush() -> None:
     tracer.write(
         {"type": "metrics", "ts": time.time(), "pid": os.getpid(), **snap}
     )
+
+
+def record_kernel_launches(counts) -> None:
+    """Set ``kernel.<name>.launches`` to each count of ``counts`` (kernel
+    name -> launches in this process)."""
+    for name, n in counts.items():
+        gauge(f"kernel.{name}.launches").set(int(n))
+
+
+def record_device_memory() -> None:
+    """High-water memory of each card this process has opened.
+
+    ``device.<i>.peak_bytes_in_use`` (``torch.cuda.max_memory_allocated``,
+    a high-water gauge) and ``device.<i>.bytes_reserved``
+    (``torch.cuda.memory_reserved``). Nothing on the CPU, and nothing in a
+    process that has not imported torch or opened a CUDA context: this
+    never creates one. Never raises.
+    """
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return
+    try:
+        if not torch.cuda.is_initialized():
+            return
+        for i in range(torch.cuda.device_count()):
+            gauge(f"device.{i}.peak_bytes_in_use").set_max(
+                int(torch.cuda.max_memory_allocated(i))
+            )
+            gauge(f"device.{i}.bytes_reserved").set(int(torch.cuda.memory_reserved(i)))
+    except Exception:  # noqa: BLE001 - telemetry never takes the process down
+        pass
+
+
+def poll_device_memory() -> None:
+    """One poll tick of the scheduler loop: sample the memory gauges and
+    flush them if they changed."""
+    record_device_memory()
+    flush()
 
 
 def reset() -> None:

@@ -35,6 +35,11 @@ logger = logging.getLogger(__name__)
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
 
 
+class BackendUnavailable(RuntimeError):
+    """The backend is not there to use: a short-circuit in ``mode=fail``, or
+    (in the port's device watchdog, which never degrades) a failed probe."""
+
+
 class CircuitBreaker:
     """File-backed (or process-local) circuit breaker for backend calls."""
 
@@ -187,6 +192,11 @@ class CircuitBreaker:
             )
         else:
             self._store({"state": CLOSED, "failures": failures})
+
+    def healthy(self) -> bool:
+        """Health verdict for ``/healthz``: False exactly while the breaker is
+        OPEN in its cooldown (half-open lets a test call through)."""
+        return self.state() != OPEN
 
     def snapshot(self) -> Dict:
         """JSON-safe view for records and diagnostics."""

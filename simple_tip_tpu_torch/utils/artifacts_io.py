@@ -1,13 +1,18 @@
 """Atomic writes for artifacts and cache entries, and the sweep of their orphans.
 
-Own copy of the JAX package's ``utils/artifacts_io.py`` without its fault
-seam and obs counters: ``atomic_write_bytes`` writes ``<path>.<pid>.tmp``,
-fsyncs it and renames it over ``path``, so a reader (or another process
-sharing a cache directory) sees the old file or the new one, never part of
-one. A process killed between the write and the rename leaves its tmp
-behind; ``sweep_orphan_tmp`` removes such files once they are older than an
-hour (``TIP_TMP_SWEEP_AGE_S``), and matches only the ``.<pid>.tmp`` shape,
-so it never touches another program's file.
+Own copy of the JAX package's ``utils/artifacts_io.py``:
+``atomic_write_bytes`` writes ``<path>.<pid>.tmp``, fsyncs it and renames it
+over ``path``, so a reader (or another process sharing a cache directory)
+sees the old file or the new one, never part of one. A process killed
+between the write and the rename leaves its tmp behind; ``sweep_orphan_tmp``
+removes such files once they are older than an hour
+(``TIP_TMP_SWEEP_AGE_S``, counted in ``artifacts.tmp_swept``), and matches
+only the ``.<pid>.tmp`` shape, so it never touches another program's file.
+
+Fault seam ``artifact.write`` (``resilience/faults.py``): a ``torn`` fault
+writes half the payload to the tmp file and raises ``InjectedFault`` (the
+tmp is removed, the destination untouched); a ``kill`` fault writes half
+and exits the process before the rename.
 """
 
 import logging
@@ -52,6 +57,9 @@ def sweep_orphan_tmp(directory: str, max_age_s: float = None) -> int:
         except OSError:
             continue  # raced another sweep or writer
     if removed:
+        from simple_tip_tpu_torch import obs
+
+        obs.counter("artifacts.tmp_swept").inc(removed)
         logger.info("swept %d orphan tmp file(s) from %s", removed, directory)
     return removed
 
@@ -59,9 +67,20 @@ def sweep_orphan_tmp(directory: str, max_age_s: float = None) -> int:
 def atomic_write_bytes(path: str, data: bytes) -> None:
     """Write ``data`` to ``path`` through ``<path>.<pid>.tmp``: write, fsync,
     rename. On any failure the tmp is removed and ``path`` is untouched."""
+    from simple_tip_tpu_torch.resilience import faults
+
     tmp = f"{path}.{os.getpid()}.tmp"
+    fault = faults.maybe_inject("artifact.write", path=path)
+    torn = fault is not None and fault.kind in ("torn", "kill")
     try:
         with open(tmp, "wb") as f:
+            if torn:
+                f.write(data[: max(1, len(data) // 2)])
+                f.flush()
+                os.fsync(f.fileno())
+                if fault.kind == "kill":
+                    os._exit(1)  # the process dies mid-write
+                raise faults.InjectedFault(f"torn write injected for {path}")
             f.write(data)
             f.flush()
             os.fsync(f.fileno())

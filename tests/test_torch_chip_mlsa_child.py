@@ -1,12 +1,12 @@
 """The full-width pc-mlsa read of ``chip_smoke.py`` (phase 8) with its CPU
-side in a child process (``--mlsa-cpu``).
+side in a child process (``CpuReference``, ``--cpu-ref``).
 
 On the CPU, with a narrow tap (MNIST's tap 6) and seeded weights: the
 child's fit on the saved traces gives the in-process fit's components and
 ``reg_covar`` rungs and scores within 1e-5 of them (other thread counts
 sum in other orders), the APFD of both SC-CAM orders equal, and no child
 is left running; the read raises when the APFD gate is breached, and when
-the child fails.
+the child fails (here: a thread count torch refuses).
 """
 
 import numpy as np
@@ -53,7 +53,8 @@ def test_read_raises_on_a_breach_and_on_a_failed_child(tmp_path, monkeypatch):
     with pytest.raises(AssertionError, match="pc-mlsa at full width: APFD"):
         read.finish()
     (tmp_path / "bad").mkdir()
-    monkeypatch.setattr(chip_smoke.np, "savez", lambda path, **arrays: None)
+    monkeypatch.setattr(chip_smoke, "MLSA_CPU_THREADS", 0)
     broken = _read(tmp_path / "bad")
-    with pytest.raises(AssertionError, match="pc-mlsa CPU fit, mnist: exit 1"):
+    with pytest.raises(AssertionError,
+                       match="pc-mlsa CPU fit, mnist: CPU reference mlsa_full_width exited 1"):
         broken.finish()

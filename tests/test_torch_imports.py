@@ -2,12 +2,17 @@
 ``chip_smoke.py`` and not the port's card scripts import jax, flax,
 anything of ``simple_tip_tpu``, pandas or sklearn (the card machine has
 neither of the last two), checked on the source, so lazy imports inside
-functions count too; and every module imports without a card."""
+functions count too; every module imports without a card; and the study
+execution layer (the run scheduler, the fleet, the resilience modules, the
+log bridge and the device watchdog) imports neither torch nor numpy, so the
+scheduler's synthetic-phase workers start without them."""
 
 import ast
 import importlib
 import os
 import pkgutil
+import subprocess
+import sys
 
 import pytest
 
@@ -25,6 +30,8 @@ def _port_sources():
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "torch_flash_bwd_ab.py")
+    yield os.path.join(ROOT, "scripts", "torch_cold_build_race.py")
+    yield os.path.join(ROOT, "scripts", "torch_sched_phase.py")
 
 
 def _imported_tops(path: str):
@@ -63,3 +70,29 @@ def test_every_port_module_imports_without_a_card():
         except Exception as e:  # noqa: BLE001 - report all, then fail once
             failures.append(f"{mod.name}: {type(e).__name__}: {e}")
     assert not failures, "\n".join(failures)
+
+
+STDLIB_ONLY = (
+    "simple_tip_tpu_torch.parallel.run_scheduler",
+    "simple_tip_tpu_torch.parallel.fleet",
+    "simple_tip_tpu_torch.resilience",
+    "simple_tip_tpu_torch.resilience.faults",
+    "simple_tip_tpu_torch.resilience.journal",
+    "simple_tip_tpu_torch.resilience.lease",
+    "simple_tip_tpu_torch.obs.logbridge",
+    "simple_tip_tpu_torch.utils.device_watchdog",
+    "simple_tip_tpu_torch.utils.artifacts_io",
+)
+
+
+@pytest.mark.parametrize("module", STDLIB_ONLY)
+def test_study_execution_modules_import_no_torch(module):
+    code = (
+        "import importlib, sys; importlib.import_module(sys.argv[1]); "
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'numpy', 'jax', 'simple_tip_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", code, module], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -15,8 +15,11 @@ on the CPU.
   standard: masks, coverage scores and CAM orders byte-equal, uncertainties
   within atol 1e-5, DSA within rtol 1e-4, VR by dtype, shape and range.
 - With no card and no ``--device``, a model phase exits non-zero and
-  writes nothing; ``--workers 2`` is refused with a message naming what is
-  missing; the two statistics evaluations run on the host and write their
+  writes nothing; ``--workers 2`` on a card that fails the watchdog's probe
+  (a ``watchdog.probe`` fault) exits 2 naming the worker processes and the
+  reason, before any worker starts or any file is written (the run
+  scheduler itself is held in ``tests/test_torch_run_scheduler.py``); the
+  two statistics evaluations run on the host and write their
   CSVs (``tests/test_torch_statistics.py`` holds their bytes to the JAX
   package's).
 """
@@ -24,6 +27,7 @@ on the CPU.
 import dataclasses
 import functools
 import glob
+import json
 import os
 
 import numpy as np
@@ -206,13 +210,22 @@ def test_no_card_and_no_device_writes_nothing(study_dirs, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv, missing", [
-    (["--phase", "test_prio", "--case-study", "mnist", "--workers", "2", "--device", "cpu"],
+    (["--phase", "test_prio", "--case-study", "mnist", "--workers", "2"],
      "worker processes"),
 ])
-def test_unported_options_are_refused(study_dirs, capsys, argv, missing):
+def test_unported_options_are_refused(study_dirs, monkeypatch, tmp_path, capsys, argv, missing):
+    """Nothing falls back to the CPU: with a card that does not answer the
+    watchdog's probe, ``--workers 2`` exits 2 with the reason and writes
+    nothing (the JAX package would go on on the CPU here)."""
     _, assets = study_dirs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("TIP_FAULT_PLAN", json.dumps(
+        {"faults": [{"site": "watchdog.probe", "kind": "fail", "times": 0}]}))
+    monkeypatch.setenv("TIP_FAULT_STATE", str(tmp_path / "fault_state"))
+    monkeypatch.setenv("TIP_BREAKER_STATE", "off")
     assert cli.main(argv) == 2
-    assert missing in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert missing in err and "probe-fail" in err and "injected probe failure" in err
     assert not os.path.exists(assets)
 
 
