@@ -46,13 +46,13 @@ Needs one CUDA card; exits non-zero without one (and without the
    runs): each family at full width on its loader's training set (MNIST 60,000,
    CIFAR-10 50,000, IMDB 25,000) with the registry's train configs
    (batch 128 / 32 / 32, lr 1e-3, validation split 0.1), **epochs cut to 1**
-   (the registry trains 15 / 20 / 10); MNIST trains runs 0 and 1 (a
-   two-member ``train_ensemble``), CIFAR-10 and IMDB run 0. Per run: epoch
+   (the registry trains 15 / 20 / 10); MNIST and IMDB train runs 0 and 1
+   (two-member ``train_ensemble``s), CIFAR-10 run 0. Per run: epoch
    seconds and steps, first-step and mean epoch loss, accuracy on the
    held-out 10% and on the nominal test set; checks: the mean loss is below
    the first step's, accuracy clears its floor (``ACCURACY_FLOOR``), each
-   checkpoint reads back byte-equal; the IMDB epoch must launch B4, B5 and
-   B6 once a step (704 steps);
+   checkpoint reads back byte-equal; the IMDB epochs must launch B4, B5 and
+   B6 once a step (704 steps a run);
 6. per kernel, at its main path's shapes and on the trained weights: max
    error against the plain version, and the times of the kernel, the plain
    version and one library call used as a yardstick only:
@@ -196,6 +196,35 @@ Needs one CUDA card; exits non-zero without one (and without the
    English-like IMDB texts), IMDB's corruption on the card; the loaders read
    the results: every MNIST-C slice byte-equal to the written rows in the
    cache and in ``load_mnist``'s OOD set, IMDB's corrupted set loaded;
+7e. sequence parallelism (``parallel/ring_attention.py``,
+   ``parallel/ulysses_attention.py``, ``parallel/exchange.py``) and the
+   full-study command (``full_study.py``, ``parallel/distributed.py``): one
+   group of 4 ranks on the card, spawned before phase 7d so that their
+   start runs beside it (``SpGroup``, ``run_ranks``; gloo, since NCCL
+   refuses two ranks on one GPU; the exchanges that gloo cannot take on
+   CUDA tensors staged through host memory, counted per operation and
+   printed), each rank on every B4, B5 and B6 launch: (a) IMDB run 0's
+   model at full width (vocab 2000, T=100, 2 heads of 32) as ring over 2
+   and over 4 ranks and as ulysses over 2, its probabilities and taps on
+   one prediction batch (600 rows) within rtol 2e-4 / atol 2e-5 of the
+   one-rank flash model and one training step's gradients (32 rows) to
+   phase 6's tolerance, the counters zeroed just before each case and read
+   just after: B4, B5 and B6 launched in every rank; (b) the long-context
+   core at [1, 32768, 2, 32], ring and ulysses over 2 ranks, forward and
+   backward on each rank's shard, gathered and held against one-rank flash
+   attention at the full length (output within rtol 2e-4 / atol 2e-5,
+   gradients as phase 6's B5/B6 checks), then timed (3 repetitions) beside
+   one-rank B4-B6 and their bound; NCCL chosen and formed at world size 1,
+   the ring model's step byte-equal to the flash model's; (c)
+   ``python -m simple_tip_tpu_torch.full_study --case-studies imdb --runs
+   0,1 --phases test_prio,evaluation`` as two hosts on a localhost
+   coordinator on the card, on phase 5's checkpoints with both caches
+   phase 7's, started after (a) and (b) and run beside phases 8-12
+   (checked after phase 12): each host reports 1/2 runs, only host 0 prints the
+   evaluation lines, every host reaches both rendezvous and host 0
+   aggregates only after every host's phase ended (the event streams),
+   run 0's artifacts byte-equal to phase 7's, run 1's complete; each
+   host's B4 launches read from its flushed metrics;
 8. per path, the slice with DSA on a small subset on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
@@ -282,13 +311,16 @@ import json
 import os
 import pickle
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 from simple_tip_tpu_torch import _build, cli, obs
@@ -330,7 +362,10 @@ from simple_tip_tpu_torch.ops import LAUNCH_COUNTERS, dsa_cuda, flash_attention,
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.ops.levenshtein import lev_matrix, levenshtein
 from simple_tip_tpu_torch.ops.text_corruptor import TextCorruptor
-from simple_tip_tpu_torch.parallel import shared_loop
+from simple_tip_tpu_torch.parallel import exchange, shared_loop
+from simple_tip_tpu_torch.parallel.distributed import run_ranks, sp_backend
+from simple_tip_tpu_torch.parallel.ring_attention import ring_attention, sequence_parallel_group
+from simple_tip_tpu_torch.parallel.ulysses_attention import ulysses_attention
 from simple_tip_tpu_torch.plotters import eval_active_learning_table, eval_apfd_table, times_collector
 from simple_tip_tpu_torch.plotters.utils import APPROACHES, human_approach_names
 from simple_tip_tpu_torch.serving import (
@@ -341,7 +376,7 @@ from simple_tip_tpu_torch.serving import (
     ServingKnobs,
     drive,
 )
-from simple_tip_tpu_torch.utils import checkpoint
+from simple_tip_tpu_torch.utils import artifact_check, checkpoint
 
 START = time.perf_counter()  # the command's clock, from the imports on
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
@@ -389,8 +424,10 @@ MLSA_APFD_GAP = 0.02
 MLSA_CPU_THREADS = 6
 # The other CPU sides of card-against-CPU checks (phase 8's four small SA
 # variants, phase 10's selections) run in child processes too, on this many
-# threads each.
+# threads each. Every such child runs at this niceness, so that the card
+# phases beside it, whose host work launches the kernels, keep their cores.
 CPU_REF_THREADS = 2
+CPU_REF_NICE = 10
 CPU_REF_TIMEOUT_S = 900
 # Per path: model, (train, nominal, ood) sizes, NC and SA taps, DSA badge,
 # batch size (the JAX case study's prediction badge), coverage neurons of
@@ -417,7 +454,7 @@ PATHS = {
         dsa_badge=500, batch=600, neurons=32 + 20,
         kernels=("flash_attention_fwd", "dsa_nearest"),
         chain_kernels=("flash_attention_fwd", "dsa_nearest"),
-        train_batch=32, runs=[0], classes=2,
+        train_batch=32, runs=[0, 1], classes=2,
         train_kernels=("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
     ),
 }
@@ -537,6 +574,27 @@ SCHED_DRILL_RUN_TIMEOUT_S = 120.0
 SCHED_DRILL_TIMEOUT_S = 300
 ONRAMP_CIFAR = (("fog", "snow"), 5_000)
 ONRAMP_TEXTS = (1_000, 1_000)
+# Sequence parallelism and the full-study command (phase 7e): one spawned group of
+# SP_WORLD ranks on the card (gloo: NCCL refuses two ranks on one GPU; its
+# first two ranks form the 2-rank subgroup), the IMDB cases over it (core,
+# ranks) on run 0's weights, their tolerance against the one-rank flash
+# model (the gradients': phase 6's), the training step's rows, the
+# long-context core's shape, cores and timing repetitions, and the study
+# command's family, runs and time limit in seconds (the group's limit covers
+# the phases it waits through: it is spawned before phase 7d).
+SP_WORLD = 4
+SP_CASES = (("ring", 2), ("ring", 4), ("ulysses", 2))
+SP_RTOL, SP_ATOL = 2e-4, 2e-5
+SP_STEP_ROWS = 32
+SP_LONG_SHAPE = (1, 32768, 2, 32)
+SP_LONG_CORES = ("ring", "ulysses")
+SP_LONG_REPS = 3
+SP_TIMEOUT_S = 900
+STUDY_FAMILY = "imdb"
+STUDY_RUNS = (0, 1)
+STUDY_TIMEOUT_S = 400
+# The flash kernels every rank of the sequence-parallel path must launch.
+SP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # Each kernel wrapper's launch counter (the names the workers' metrics use).
 COUNTERS = {name: (sys.modules[module], attr)
             for name, (module, attr) in LAUNCH_COUNTERS.items()}
@@ -1495,20 +1553,13 @@ def check_imdb_gradients(params, data, dev) -> dict:
         names, tensors = zip(*net.named_parameters())
         grads.append(dict(zip(names, torch.autograd.grad(loss, tensors))))
     card, cpu = grads
+    faults, worst = gradient_faults(card, cpu, "IMDB")
+    if faults:
+        raise AssertionError("card vs CPU: " + "; ".join(faults))
     floor = 1e-7 * max(float(g.abs().max()) for g in cpu.values())
-    worst, relative = 0.0, {}
-    for name, want in cpu.items():
-        got = card[name].cpu()
-        scale = float(want.abs().max())
-        atol = min(2e-5, 2e-4 * scale + floor)
-        excess = float(((got - want).abs() - 2e-4 * want.abs()).max())
-        if excess > atol:
-            raise AssertionError(f"IMDB gradient {name}: card vs CPU off by {excess} beyond "
-                                 f"rtol 2e-4 + atol {atol}")
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        if name.startswith("block.attention."):
-            relative[name] = err / max(scale, floor)
+    relative = {name: float((card[name].cpu() - want).abs().max()) / max(float(want.abs().max()),
+                                                                          floor)
+                for name, want in cpu.items() if name.startswith("block.attention.")}
     norms = {p: float(card[f"block.attention.{p}.weight"].norm())
              for p in ("query", "key", "value")}
     if not all(n > 0 for n in norms.values()):
@@ -2002,7 +2053,9 @@ def _al_selections_cpu(tree, datasets, x_train, k):
 
 
 def cpu_ref_main(path: str) -> int:
-    """The child's side of ``CpuReference``."""
+    """The child's side of ``CpuReference``, at a lower scheduling priority
+    than the card phases beside it (whose host work launches the kernels)."""
+    os.nice(CPU_REF_NICE)
     with open(path + ".in.pkl", "rb") as f:
         kind, threads, inputs = pickle.load(f)
     torch.set_num_threads(threads)
@@ -2329,7 +2382,7 @@ def warm_cache_verdict(report: dict) -> None:
 
 
 def warm_cache_main(family: str) -> int:
-    """The fresh interpreter's side of ``run_warm_cache``: the study and run
+    """The fresh interpreter's side of ``WarmCache``: the study and run
     0's weights from the registry, the check's report as the last line."""
     dev = resolve(None)
     torch.backends.cudnn.deterministic = True
@@ -2341,22 +2394,32 @@ def warm_cache_main(family: str) -> int:
     return 0
 
 
-def run_warm_cache(family: str, root: str, cold_records: dict) -> dict:
+class WarmCache:
     """``warm_cache_check`` in a fresh interpreter (as a run scheduler
-    starts one) on phase 7's ``TIP_ASSETS``; checked by
-    ``warm_cache_verdict`` and printed beside phase 7's cold setup seconds."""
-    env = dict(os.environ, TIP_ASSETS=os.path.join(root, "train"))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warm-cache", family],
-                          env=env, capture_output=True, text=True, timeout=WARM_CACHE_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise AssertionError(f"warm cache, {family}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
-    report["process_s"] = time.perf_counter() - t0
-    report["cold_setup_s"] = {name: cold_records["nominal"][name][0] for name in SA_NAMES}
-    print(json.dumps({"warm_cache": report}))
-    warm_cache_verdict(report)
-    return report
+    starts one) on phase 7's ``TIP_ASSETS``; ``finish`` waits for it, checks
+    it by ``warm_cache_verdict`` and prints it beside phase 7's cold setup
+    seconds."""
+
+    def __init__(self, family: str, root: str):
+        self.family = family
+        env = dict(os.environ, TIP_ASSETS=os.path.join(root, "train"))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--warm-cache", family], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(self.proc)
+
+    def finish(self, cold_records: dict) -> dict:
+        out, err = self.proc.communicate(timeout=WARM_CACHE_TIMEOUT_S)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"warm cache, {self.family}: exit {self.proc.returncode}\n"
+                                 f"{err[-4000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        report["process_s"] = time.perf_counter() - self.t0
+        report["cold_setup_s"] = {name: cold_records["nominal"][name][0] for name in SA_NAMES}
+        print(json.dumps({"warm_cache": report}))
+        warm_cache_verdict(report)
+        return report
 
 
 def check_disk_spill(family: str, params, data, dev, root: str) -> dict:
@@ -3255,6 +3318,420 @@ def run_sched_phase(data_dir: str, dev, root: str, seed: int, inproc_run0_s: flo
     return record
 
 
+# -- sequence parallelism and the full-study command (phase 7e of the docstring) --
+
+
+def close_faults(got, want, what: str, rtol: float, atol: float) -> list:
+    """``[what]`` unless |got - want| <= atol + rtol |want| everywhere (and
+    the shapes agree)."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    if got.shape != want.shape:
+        return [f"{what}: shape {tuple(got.shape)}, want {tuple(want.shape)}"]
+    excess = float(((got - want).abs() - rtol * want.abs()).max())
+    return [f"{what}: off by {excess} beyond rtol {rtol} + atol {atol}"] if excess > atol else []
+
+
+def sp_output_faults(probs, taps: dict, want_probs, want_taps: dict, what: str) -> list:
+    """A sequence-parallel forward's probabilities and taps 1-7 against the
+    one-rank flash model's, within ``SP_RTOL`` / ``SP_ATOL``."""
+    faults = close_faults(probs, want_probs, f"{what} probs", SP_RTOL, SP_ATOL)
+    if sorted(taps) != sorted(want_taps):
+        return faults + [f"{what}: taps {sorted(taps)}, want {sorted(want_taps)}"]
+    for i in sorted(want_taps):
+        faults += close_faults(taps[i], want_taps[i], f"{what} tap {i}", SP_RTOL, SP_ATOL)
+    return faults
+
+
+def gradient_faults(got: dict, want: dict, what: str) -> tuple:
+    """(faults, max |got - want|) of an IMDB step's gradients, phase 6's
+    tolerance: rtol 2e-4, atol per leaf 2e-4 of its largest |want| plus 1e-7
+    of the model's largest, at most 2e-5."""
+    if sorted(got) != sorted(want):
+        return [f"{what}: gradients of {sorted(set(got) ^ set(want))} apart"], float("inf")
+    floor = 1e-7 * max(float(torch.as_tensor(g).abs().max()) for g in want.values())
+    faults, worst = [], 0.0
+    for name, w in want.items():
+        g, w = torch.as_tensor(got[name]).cpu(), torch.as_tensor(w).cpu()
+        atol = min(2e-5, 2e-4 * float(w.abs().max()) + floor)
+        faults += close_faults(g, w, f"{what} gradient {name}", 2e-4, atol)
+        worst = max(worst, float((g - w).abs().max()))
+    return faults, worst
+
+
+def sp_launch_faults(launches: dict, what: str, kernels=SP_KERNELS) -> list:
+    """A rank (``launches``: rank -> {kernel: launches}) that launched one of
+    ``kernels`` no time."""
+    return [f"{what}: rank {rank} launched {name} {counts.get(name, 0)} times"
+            for rank, counts in sorted(launches.items()) for name in kernels
+            if not counts.get(name, 0) > 0]
+
+
+def imdb_step_gradients(net, x, y) -> dict:
+    """{parameter: gradient} of one IMDB step's mean loss (``train=False``)."""
+    probs, _ = net(x)
+    loss = categorical_crossentropy(probs, F.one_hot(y, 2).float()).mean()
+    names, tensors = zip(*net.named_parameters())
+    return dict(zip(names, torch.autograd.grad(loss, tensors)))
+
+
+def _sp_counts() -> dict:
+    counts = read_counters()
+    return {name: counts[name] for name in SP_KERNELS}
+
+
+def sp_long_context(rank: int, group, seed: int, dev, shape: tuple) -> dict:
+    """(b) of phase 7e on one rank of the 2-rank group: each core of
+    ``SP_LONG_CORES`` forward and backward on this rank's shard of
+    ``shape`` (once counted and checked, then timed), its output and
+    gradients gathered; rank 0 then runs one-rank flash attention at the
+    full length, times it and holds the cores' results against it."""
+    rng = np.random.default_rng(seed + 7)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+                     for _ in range(4))
+    step = shape[1] // torch.distributed.get_world_size(group)
+    local = [x[:, rank * step:(rank + 1) * step].contiguous() for x in (q, k, v, dout)]
+    cores = {"ring": ring_attention, "ulysses": ulysses_attention}
+
+    def fwd_bwd(core, args, grad_out):
+        leaves = [x.detach().requires_grad_() for x in args]
+        out = core(*leaves)
+        return [out.detach(), *torch.autograd.grad(out, leaves, grad_out)]
+
+    def timed(fn) -> float:
+        fn()
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(SP_LONG_REPS):
+            fn()
+        synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / SP_LONG_REPS
+
+    record, results = {}, {}
+    for name in SP_LONG_CORES:
+        core = cores[name]
+        zero_counters()
+        got = fwd_bwd(lambda a, b, c: core(a, b, c, group), local[:3], local[3])
+        synchronize(dev)
+        launches = _sp_counts()
+        results[name] = [exchange.all_gather_seq(t.contiguous(), group) for t in got]
+        torch.distributed.barrier(group)
+        ms = timed(lambda: fwd_bwd(lambda a, b, c: core(a, b, c, group), local[:3], local[3]))
+        record[name] = {"ms": ms, "launches": launches}
+    if rank == 0:
+        want = fwd_bwd(flash_attention.flash_attention, (q, k, v), dout)
+        record["flash_one_rank_ms"] = timed(
+            lambda: fwd_bwd(flash_attention.flash_attention, (q, k, v), dout))
+        faults = []
+        for name, got in results.items():
+            for what, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+                scale = float(w.abs().max())
+                tol = (SP_RTOL, SP_ATOL) if what == "out" else (1e-4, min(1e-5, 1e-4 * scale))
+                faults += close_faults(g, w, f"long-context {name} {what}", *tol)
+                record[name].setdefault("max_abs_err", {})[what] = float((g - w).abs().max())
+        record["faults"] = faults
+    return record
+
+
+def sp_rank_main(rank: int, world: int, go: str, device_type: str, state: dict, x_pred, x_step,
+                 y_step, seed: int, long_shape: tuple) -> dict:
+    """(internal) One rank of phase 7e's spawned group on the card: (a) the
+    IMDB model at full width on run 0's weights (``state``), each case of
+    ``SP_CASES`` this rank is in, against the one-rank flash model it
+    computes itself (counters zeroed around each case); (b) on the 2-rank
+    group, ``sp_long_context``. The rank is spawned ahead of the phase and
+    touches the card only once the file ``go`` exists (``SpGroup``).
+    Returns faults, errors, launches, times and the exchanges staged
+    through host memory."""
+    timeline = {"entered": time.time()}
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"phase 7e's go ({go}) did not come within {SP_TIMEOUT_S} s")
+        time.sleep(0.05)
+    timeline["go"] = time.time()
+    dev = resolve(f"cuda:{rank % torch.cuda.device_count()}" if device_type == "cuda" else "cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    groups = {n: sequence_parallel_group(n) for n in sorted({n for _, n in SP_CASES})}
+
+    def model(impl="dense", group=None):
+        net = ImdbTransformer(attention_impl=impl, sp_group=group).to(dev).eval()
+        net.load_state_dict(state)
+        return net
+
+    xp = torch.from_numpy(x_pred).to(dev)
+    xs, ys = torch.from_numpy(x_step).to(dev), torch.from_numpy(y_step).to(dev)
+    reference = model()
+    with torch.no_grad():
+        want_probs, want_taps = reference(xp)
+    want_grads = imdb_step_gradients(reference, xs, ys)
+    timeline["reference"] = time.time()
+    cases, faults = {}, []
+    for impl, n in SP_CASES:
+        if rank >= n:
+            continue
+        net = model(impl, groups[n])
+        what = f"{impl} over {n} ranks, rank {rank}"
+        zero_counters()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            probs, taps = net(xp)
+        grads = imdb_step_gradients(net, xs, ys)
+        synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = _sp_counts()
+        faults += sp_output_faults(probs, taps, want_probs, want_taps, what)
+        grad_faults, grad_err = gradient_faults(grads, want_grads, what)
+        faults += grad_faults
+        cases[f"{impl}{n}"] = {
+            "launches": launches, "seconds": seconds, "gradient_max_abs_err": grad_err,
+            "probs_max_abs_err": float((probs - want_probs).abs().max())}
+    timeline["cases"] = time.time()
+    long = sp_long_context(rank, groups[2], seed, dev, long_shape) if rank < 2 else {}
+    faults += long.pop("faults", [])
+    timeline["long"] = time.time()
+    return {"cases": cases, "long": long, "faults": faults, "staged": dict(exchange.STAGED),
+            "timeline": timeline}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sp_nccl_one_rank(state: dict, x_step, y_step, dev) -> dict:
+    """The transport's choice where each rank has a card: NCCL at world size
+    1 in this process (the one card), the ring model's step equal to the
+    flash model's (n=1 exchanges nothing)."""
+    backend = sp_backend(dev.type, 1)
+    torch.distributed.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        nets = {}
+        for impl, group in (("dense", None), ("ring", torch.distributed.group.WORLD)):
+            nets[impl] = ImdbTransformer(attention_impl=impl, sp_group=group).to(dev).eval()
+            nets[impl].load_state_dict(state)
+        xs, ys = torch.from_numpy(x_step).to(dev), torch.from_numpy(y_step).to(dev)
+        want = imdb_step_gradients(nets["dense"], xs, ys)
+        got = imdb_step_gradients(nets["ring"], xs, ys)
+    finally:
+        torch.distributed.destroy_process_group()
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    record = {"backend": backend, "gradients_equal": equal}
+    if dev.type == "cuda" and backend != "nccl" or not equal:
+        raise AssertionError(f"sequence parallelism at world size 1: {record}")
+    return record
+
+
+def study_faults(outs: list, codes: list, records: list, runs) -> list:
+    """What is wrong with a multi-host ``full_study`` run of ``runs`` (each
+    host's standard output and exit code, the hosts' event streams): a host
+    that failed, reported another share than its contiguous one, printed
+    evaluation lines though it is not host 0 (or host 0 none), skipped a
+    rendezvous, or host 0 aggregating before every host's phases ended."""
+    n, faults = len(outs), []
+    base_share, rem = divmod(len(runs), n)
+    for i, (out, code) in enumerate(zip(outs, codes)):
+        if code != 0:
+            faults.append(f"host {i} exited {code}: {out[-1500:]}")
+        share = f"host {i}/{n}: {base_share + (i < rem)}/{len(runs)} runs"
+        if share not in out:
+            faults.append(f"host {i} did not report '{share}'")
+        if ("[evaluation:" in out) != (i == 0):
+            faults.append(f"host {i} {'printed' if i else 'did not print'} evaluation lines")
+    spans = [r for r in records if r.get("type") == "span"]
+    phase_end = [r["ts"] + r["dur"] for r in spans
+                 if r["name"] in ("training", "test_prio", "active_learning", "at_collection")]
+    evaluated = [r["ts"] for r in spans if r["name"] == "evaluation"]
+    met = {(r["attrs"]["rank"], r["attrs"]["barrier"]) for r in records
+           if r.get("type") == "event" and r.get("name") == "barrier"}
+    for rank in range(n):
+        for when in ("pre", "post"):
+            if (rank, f"full_study_{when}_evaluation") not in met:
+                faults.append(f"host {rank} skipped the {when}-evaluation rendezvous")
+    if not evaluated:
+        faults.append("no evaluation span")
+    elif phase_end and min(evaluated) < max(phase_end):
+        faults.append(f"host 0 aggregated {max(phase_end) - min(evaluated):.3f} s before "
+                      "every host's phases ended")
+    return faults
+
+
+def host_launches(records: list) -> dict:
+    """Per process of the streams, the kernel launches of its last flushed
+    metrics."""
+    out = {}
+    for rec in records:
+        if rec.get("type") == "metrics":
+            out[rec["pid"]] = {name[len("kernel."):-len(".launches")]: value
+                               for name, value in rec.get("gauges", {}).items()
+                               if name.startswith("kernel.") and name.endswith(".launches")}
+    return out
+
+
+class StudyHosts:
+    """(c) of phase 7e: ``python -m simple_tip_tpu_torch.full_study`` as two
+    hosts over a localhost coordinator on the one card, ``STUDY_FAMILY``'s
+    runs ``STUDY_RUNS`` through test_prio and evaluation on phase 5's
+    checkpoints (copied into a fresh ``TIP_ASSETS``), both caches phase 7's,
+    the event streams in one ``TIP_OBS_DIR``. Started after the group's
+    cases and timings, they run beside the phases that follow (their
+    seconds are not a clean measure); ``finish`` checks them with
+    ``study_faults``, run 0's artifacts byte-equal to phase 7's and run 1's
+    complete."""
+
+    hosts = 2
+
+    def __init__(self, data_dir: str, dev, root: str):
+        self.src = os.path.join(root, "train")
+        self.study = os.path.join(root, "study")
+        self.obs_dir = os.path.join(root, "study_obs")
+        shutil.copytree(os.path.join(self.src, "models", STUDY_FAMILY),
+                        os.path.join(self.study, "models", STUDY_FAMILY))
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "TIP_FUSED_CHAIN", "TIP_CHAIN_GROUP", "TIP_FAULT_PLAN", "TIP_WORKER_PLATFORMS",
+            "TIP_OBS_ROOT")}
+        env.update(TIP_ASSETS=self.study, TIP_DATA_DIR=data_dir, TIP_OBS_DIR=self.obs_dir,
+                   TIP_SA_CACHE_DIR=os.path.join(self.src, "sa_fit_cache"),
+                   TIP_COV_STATS_CACHE_DIR=os.path.join(self.src, "coverage_stats_cache"))
+        port = _free_port()
+        runs = ",".join(str(r) for r in STUDY_RUNS)
+        self.t0 = time.perf_counter()
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-m", "simple_tip_tpu_torch.full_study", "--case-studies",
+             STUDY_FAMILY, "--runs", runs, "--phases", "test_prio,evaluation", "--coordinator",
+             f"localhost:{port}", "--num-processes", str(self.hosts), "--process-id", str(i),
+             *device_args(dev)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__))) for i in range(self.hosts)]
+        CHILDREN.extend(self.procs)
+
+    def finish(self) -> dict:
+        outs = [p.communicate(timeout=STUDY_TIMEOUT_S)[0] for p in self.procs]
+        seconds = time.perf_counter() - self.t0
+        records = read_streams(self.obs_dir)
+        faults = study_faults(outs, [p.returncode for p in self.procs], records, STUDY_RUNS)
+        faults += artifact_faults(STUDY_FAMILY, self.study, {0: self.src})
+        with patched_env({"TIP_ASSETS": self.study}):
+            missing = artifact_check.check_prio_artifacts(
+                STUDY_FAMILY, STUDY_RUNS, PATHS[STUDY_FAMILY]["model"].has_dropout)
+        if missing:
+            faults.append(f"missing artifacts: {sorted(missing)[:5]}")
+        spans = {f"{r['name']}:{r.get('attrs', {}).get('which') or r.get('attrs', {}).get('cs')}"
+                 f":{r['pid']}": r["dur"] for r in records
+                 if r.get("type") == "span" and r.get("depth") == 1}
+        record = {"family": STUDY_FAMILY, "runs": list(STUDY_RUNS), "hosts": self.hosts,
+                  "seconds": seconds,
+                  "host_lines": [next((line for line in out.splitlines()
+                                       if line.startswith("host ")), "") for out in outs],
+                  "span_s": spans, "launches": host_launches(records), "faults": faults}
+        print(json.dumps({"study_hosts": record}))
+        if faults:
+            raise AssertionError("full study: " + "; ".join(faults[:20]))
+        return record
+
+
+class SpGroup:
+    """Phase 7e's ranks (``sp_rank_main``), spawned ahead of the phase: each
+    starts its interpreter, imports torch and this script and joins the
+    group while earlier phases run (the seconds that took are the
+    timeline's ``spawn_to_entry``), then waits for ``finish`` to create its
+    go file before it touches the card."""
+
+    def __init__(self, state: dict, data, dev, root: str, seed: int):
+        (x_tr, y_tr), (x_nom, _), _ = data
+        self.state = state
+        self.x_step = x_tr[:SP_STEP_ROWS].astype(np.int64)
+        self.y_step = y_tr[:SP_STEP_ROWS].astype(np.int64)
+        self.backend = sp_backend(dev.type, SP_WORLD)
+        self.go = os.path.join(root, "sp_go")
+        self.spawned = time.time()
+        self.result = self.error = None
+        args = (self.go, dev.type, state, x_nom[:PATHS["imdb"]["batch"]].astype(np.int64),
+                self.x_step, self.y_step, seed, SP_LONG_SHAPE)
+        self.thread = threading.Thread(target=self._run, args=(args,), daemon=True)
+        self.thread.start()
+
+    def _run(self, args) -> None:
+        try:
+            self.result = run_ranks(sp_rank_main, SP_WORLD, f"tcp://localhost:{_free_port()}",
+                                    self.backend, args=args, timeout_s=SP_TIMEOUT_S)
+        except BaseException as e:  # raised in finish, in the main thread
+            self.error = e
+
+    def finish(self) -> tuple:
+        """(each rank's result, seconds from the go to the last result,
+        the go's wall time)."""
+        t0, wall0 = time.perf_counter(), time.time()
+        with open(self.go, "w"):
+            pass
+        self.thread.join(SP_TIMEOUT_S)
+        if self.thread.is_alive():
+            raise AssertionError(f"phase 7e's ranks did not finish within {SP_TIMEOUT_S} s")
+        if self.error is not None:
+            raise self.error
+        return self.result, time.perf_counter() - t0, wall0
+
+
+def run_sp_phase(group: "SpGroup", dev) -> dict:
+    """Phase 7e's (a) and (b) in the spawned group of ``SP_WORLD`` ranks on
+    the card (``SpGroup``, ``sp_rank_main``), and the NCCL choice at world
+    size 1 (``sp_nccl_one_rank``); (c) is ``StudyHosts``. Raises on any
+    fault."""
+    t_phase = time.perf_counter()
+    ranks, group_s, wall0 = group.finish()
+    backend = group.backend
+    faults = [f for r in ranks for f in r["faults"]]
+    launches = {}
+    for rank, r in enumerate(ranks):
+        for case, rec in r["cases"].items():
+            launches.setdefault(case, {})[rank] = rec["launches"]
+        for core in SP_LONG_CORES:
+            if core in r["long"]:
+                launches.setdefault(f"long_{core}2", {})[rank] = r["long"][core]["launches"]
+    for case, by_rank in launches.items():
+        faults += sp_launch_faults(by_rank, case, SP_KERNELS if dev.type == "cuda" else ())
+    want_ranks = {f"{impl}{n}": n for impl, n in SP_CASES}
+    want_ranks.update({f"long_{core}2": 2 for core in SP_LONG_CORES})
+    for case, n in want_ranks.items():
+        if len(launches.get(case, {})) != n:
+            faults.append(f"{case}: {len(launches.get(case, {}))} ranks reported, want {n}")
+    long = ranks[0]["long"]
+    b, t, h, dh = SP_LONG_SHAPE
+    pairs, io, rows = b * h * t * t * dh, 4 * b * t * h * dh, 4 * 2 * b * h * t
+    bound = sum(bound_ms(flops, nbytes, "3xtf32")[0] for flops, nbytes in (
+        (2 * 2 * pairs, 4 * io + 4 * b * h * t), (3 * 2 * pairs, 5 * io + rows),
+        (4 * 2 * pairs, 6 * io + rows)))
+    long_record = {
+        "shape": list(SP_LONG_SHAPE), "reps": SP_LONG_REPS,
+        "flash_one_rank_ms": long.get("flash_one_rank_ms"), "bound_ms": bound,
+        **{core: {"ms_by_rank": [r["long"][core]["ms"] for r in ranks[:2]],
+                  "max_abs_err": long.get(core, {}).get("max_abs_err")}
+           for core in SP_LONG_CORES}}
+    staged = {rank: r["staged"] for rank, r in enumerate(ranks)}
+    # Seconds from the go to each rank's seeing it, its groups and one-rank
+    # reference, its cases and its long-context part; and from the spawn to
+    # its entry (interpreter, imports, the group formed).
+    timeline = {rank: {"spawn_to_entry": r["timeline"].pop("entered") - group.spawned,
+                       **{k: t - wall0 for k, t in r["timeline"].items()}}
+                for rank, r in enumerate(ranks)}
+    group_record = {"world": SP_WORLD, "backend": backend, "group_s": group_s,
+                    "timeline_s": timeline,
+             "cases": {rank: r["cases"] for rank, r in enumerate(ranks)},
+             "launches": launches, "staged": staged}
+    print(json.dumps({"sp_group": group_record}))
+    print(json.dumps({"sp_long_context": long_record}))
+    one_rank = sp_nccl_one_rank(group.state, group.x_step, group.y_step, dev)
+    print(json.dumps({"sp_one_rank": one_rank}))
+    record = {"group": group_record, "long_context": long_record, "one_rank": one_rank,
+              "faults": faults, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"sp_phase_s": record["phase_s"], "faults": faults}))
+    if faults:
+        raise AssertionError("sequence parallelism: " + "; ".join(faults[:20]))
+    return record
+
+
 def al_spec(data):
     """MNIST's registry study for the AL phase: one-epoch retrains and the
     registry's AL settings (checked), its training base cut to the first
@@ -3530,7 +4007,6 @@ def run_evaluation_and_check(root: str) -> dict:
         run_cli("--phase", "evaluation", "--eval", which)
         statistics[which] = {"seconds": time.perf_counter() - t0,
                              **check_statistics_csvs(prefix)}
-    from simple_tip_tpu_torch.utils import artifact_check
 
     report = {}
     for family in PATHS:
@@ -3647,7 +4123,7 @@ def main() -> int:
 
         for family in PATHS:
             paths[family] = run_path(family, params[family], data[family], dev, root)
-        warm = {family: run_warm_cache(family, root, paths[family]["time_records"])
+        warm = {family: WarmCache(family, root).finish(paths[family]["time_records"])
                 for family in WARM_CACHE_PATHS}
         spill = check_disk_spill("imdb", params["imdb"], data["imdb"], dev, root)
         t0 = time.perf_counter()
@@ -3665,15 +4141,20 @@ def main() -> int:
         print(json.dumps({"chain_phase_s": chain_phase_s, "gpu": smi}))
         serving = run_serving(params, data, dev, late_params=group_params[1])
         print(json.dumps({"serving_phase_s": serving["phase_s"], "gpu": smi}))
+        sp_group = SpGroup(params["imdb"]["module"], data["imdb"], dev, root, args.seed)
         sched = run_sched_phase(os.path.join(root, "datasets"), dev, root, args.seed,
                                 paths[SCHED_FAMILY]["slice_s"])
         print(json.dumps({"sched_phase_s": sched["phase_s"], "gpu": smi}))
+        sp = run_sp_phase(sp_group, dev)
+        study_hosts = StudyHosts(os.path.join(root, "datasets"), dev, root)
+        print(json.dumps({"sp_phase_s": sp["phase_s"], "gpu": smi}))
         active = run_active_learning(data[AL_FAMILY], dev, root)
         for family in PATHS:
             paths[family]["sa_small"] = paths[family]["sa_small"].finish()
         al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev, al_cpu)
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
         evaluation = run_evaluation_and_check(root)
+        sp["study"] = study_hosts.finish()
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -3688,6 +4169,7 @@ def main() -> int:
                       "chain_phase_s": chain_phase_s,
                       "serving_phase_s": serving["phase_s"],
                       "sched_phase_s": sched["phase_s"],
+                      "sp_phase_s": sp["phase_s"],
                       "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
                       "command_s": time.perf_counter() - START}))
 
@@ -3707,6 +4189,14 @@ def main() -> int:
                 k["serving_launches"] = serving["launches"][k["name"]]
         if k["name"] in PATHS[AL_FAMILY]["kernels"]:
             k["al_launches"] = active["launches"][k["name"]]
+        if k["name"] in SP_KERNELS:
+            # Per case of phase 7e, each rank's launches (ring and ulysses
+            # over its ranks, the long-context cores over 2).
+            k["sp_launches"] = {case: [by_rank[r][k["name"]] for r in sorted(by_rank)]
+                                for case, by_rank in sp["group"]["launches"].items()}
+        if k["name"] == "flash_attention_fwd":
+            k["study_host_launches"] = sorted(
+                h.get(k["name"], 0) for h in sp["study"]["launches"].values())
         if k["name"] in PATHS[SCHED_FAMILY]["kernels"]:
             k["sched_worker_launches"] = sorted(
                 w[k["name"]] for w in sched["scheduler"]["launches"].values())
@@ -3727,6 +4217,7 @@ def main() -> int:
                        "fused_chain": {"paths": fused, "graph_vs_eager": graph_eager,
                                        "group_runner": group},
                        "serving": serving, "study_execution": sched,
+                       "sequence_parallel": sp,
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ neuron-coverage metrics with their CAM orders, and the five surprise-adequacy
 variants with their surprise-coverage CAM orders (all 39 approaches), plus
 the APFD table over them (``plotters/``); and the fused route of
 ``test_prio`` (``TIP_FUSED_CHAIN``, ``TIP_CHAIN_GROUP``: one chain program a
-badge, a CUDA graph on the card, ``engine/run_program.py``). It imports torch, numpy and scipy
+badge, a CUDA graph on the card, ``engine/run_program.py``); ring and
+ulysses attention with the sequence sharded over ``torch.distributed``
+ranks (``parallel/ring_attention.py``, ``parallel/ulysses_attention.py``)
+and the multi-host full-study command (``full_study.py``). It imports torch, numpy and scipy
 only, never jax, flax or anything of ``simple_tip_tpu``.
 
 Every Pallas kernel of the JAX package has a hand-written CUDA counterpart

@@ -9,12 +9,23 @@ Dropout 0.1 -> Dense 2 softmax. Inputs are int64 token ids ``[B, T]``; taps
 
 The attention core is ``ops/flash_attention.flash_attention``, a
 ``torch.autograd.Function``: kernel B4 forward and kernels B5/B6 backward
-on the card, their plain versions on the CPU. It is the only core: the JAX
-package's dense core (``nn.MultiHeadDotProductAttention``) computes the same
-function, scaling q by 1/sqrt(dh) before the product where the flash core
-scales the scores after it, which agrees to float32 rounding. Both of its
-parameter trees (dense and flash) bridge to this module. Layer norms follow
-flax's ``LayerNorm(epsilon=1e-6)``: variance as E[x^2] - E[x]^2.
+on the card, their plain versions on the CPU. It is the one core on one
+rank: the JAX package's dense core (``nn.MultiHeadDotProductAttention``)
+computes the same function, scaling q by 1/sqrt(dh) before the product
+where the flash core scales the scores after it, which agrees to float32
+rounding. ``attention_impl`` is the JAX switch: ``"dense"`` and
+``"flash"`` run the flash core; ``"ring"`` and ``"ulysses"`` with
+``sp_group`` (a ``torch.distributed`` group) run that sequence-parallel
+core over the group's ranks (``parallel/ring_attention.py``,
+``parallel/ulysses_attention.py``; B4-B6 on every rank's shard), and
+without a group the flash core. Outside the core every rank computes on
+the full, replicated batch, and the core's autograd gives every rank the
+full gradients. As in the JAX package, ``"flash"`` with a group, ulysses
+with heads not divisible by the ranks and a sequence not divisible by
+them raise ``ValueError``; ``"dense"`` ignores a group. Every parameter
+tree of the JAX model (dense, flash, ring, ulysses) bridges to this module.
+Layer norms follow flax's ``LayerNorm(epsilon=1e-6)``: variance as
+E[x^2] - E[x]^2.
 
 Dropout is active only with ``train=True`` and draws from an explicit
 ``torch.Generator``; ``vote_prefix``/``vote_probs`` split a stochastic
@@ -30,6 +41,10 @@ from torch import nn
 
 from simple_tip_tpu_torch.models.convnet import dropout
 from simple_tip_tpu_torch.ops.flash_attention import flash_attention
+from simple_tip_tpu_torch.parallel.ring_attention import ring_attention_sharded
+from simple_tip_tpu_torch.parallel.ulysses_attention import ulysses_attention_sharded
+
+ATTENTION_IMPLS = ("dense", "ring", "ulysses", "flash")
 
 
 class FlaxLayerNorm(nn.Module):
@@ -62,14 +77,26 @@ class TokenAndPositionEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """q/k/v projections ``[E -> (H, dh)]``, the flash core, and the output
+    """q/k/v projections ``[E -> (H, dh)]``, the attention core of
+    ``impl`` (over ``group`` for ring and ulysses), and the output
     projection ``[(H, dh) -> E]``. No padding mask: every token attends to
     every token, token 0 included, as in the reference."""
 
-    def __init__(self, embed_dim: int, num_heads: int, head_dim: int):
+    def __init__(self, embed_dim: int, num_heads: int, head_dim: int,
+                 impl: str = "dense", group=None):
         super().__init__()
+        if impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl {impl!r}; "
+                             "use 'dense', 'ring', 'ulysses' or 'flash'")
+        if impl == "flash" and group is not None:
+            raise ValueError(
+                "impl='flash' is the single-device core; combine long sequences "
+                "with a group via impl='ring' or 'ulysses' (ulysses uses the flash "
+                "kernel as its local core on the card)")
         self.num_heads = num_heads
         self.head_dim = head_dim
+        self.impl = impl
+        self.group = group if impl in ("ring", "ulysses") else None
         width = num_heads * head_dim
         self.query = nn.Linear(embed_dim, width)
         self.key = nn.Linear(embed_dim, width)
@@ -82,18 +109,25 @@ class SelfAttention(nn.Module):
         def heads(proj):
             return proj(x).reshape(b, t, self.num_heads, self.head_dim)
 
-        core = flash_attention(heads(self.query), heads(self.key), heads(self.value))
+        q, k, v = heads(self.query), heads(self.key), heads(self.value)
+        if self.group is None:
+            core = flash_attention(q, k, v)
+        elif self.impl == "ring":
+            core = ring_attention_sharded(q, k, v, self.group)
+        else:
+            core = ulysses_attention_sharded(q, k, v, self.group)
         return self.out(core.reshape(b, t, -1))
 
 
 class TransformerBlock(nn.Module):
     """Post-LN encoder block: x + dropout(attn) -> LN -> FFN relu -> dropout -> LN."""
 
-    def __init__(self, embed_dim: int, num_heads: int, ff_dim: int, rate: float = 0.1):
+    def __init__(self, embed_dim: int, num_heads: int, ff_dim: int, rate: float = 0.1,
+                 attention_impl: str = "dense", sp_group=None):
         super().__init__()
         self.rate = rate
         # Keras MultiHeadAttention(key_dim=embed_dim): per-head dim embed_dim.
-        self.attention = SelfAttention(embed_dim, num_heads, embed_dim)
+        self.attention = SelfAttention(embed_dim, num_heads, embed_dim, attention_impl, sp_group)
         self.norm1 = FlaxLayerNorm(embed_dim)
         self.ffn1 = nn.Linear(embed_dim, ff_dim)
         self.ffn2 = nn.Linear(ff_dim, embed_dim)
@@ -135,12 +169,15 @@ class ImdbTransformer(nn.Module):
         ff_dim: int = 32,
         num_classes: int = 2,
         dropout_rate: float = 0.1,
+        attention_impl: str = "dense",
+        sp_group=None,
     ):
         super().__init__()
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
         self.embedding = TokenAndPositionEmbedding(maxlen, vocab_size, embed_dim)
-        self.block = TransformerBlock(embed_dim, num_heads, ff_dim, dropout_rate)
+        self.block = TransformerBlock(embed_dim, num_heads, ff_dim, dropout_rate,
+                                      attention_impl, sp_group)
         self.dense1 = nn.Linear(embed_dim, 20)
         self.dense2 = nn.Linear(20, num_classes)
 

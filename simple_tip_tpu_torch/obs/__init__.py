@@ -6,6 +6,8 @@ scoring service and the resilience helpers use:
 - ``obs.span("serving.badge", rows=512)`` / ``@obs.traced()``  nested spans
   into the JSONL stream under ``TIP_OBS_DIR`` (``tracer``; no-op when unset);
 - ``obs.event("serving.shed", rows=3)``                       lifecycle events;
+- ``obs.study_root("full_study", ...)``                       the study's root
+  span, its id pinned into the environment for child processes;
 - ``obs.counter`` / ``gauge`` / ``histogram`` / ``quantile``  the always-live
   registry (``metrics``), read by ``metrics_snapshot()``;
 - ``exporter``: ``/healthz``, ``/metrics``, ``/slo`` over HTTP when
@@ -40,6 +42,7 @@ from simple_tip_tpu_torch.obs.tracer import (
     record_span,
     reset,
     span,
+    study_root,
     traced,
 )
 
@@ -61,6 +64,7 @@ __all__ = [
     "reset",
     "reset_all",
     "span",
+    "study_root",
     "traced",
 ]
 

@@ -25,7 +25,8 @@ cap and an ``obs.evicted`` event says how much is gone.
 named span (kept spans carry ``sample_1_in: N``); the others are no-ops
 whose children attach to the nearest kept ancestor. A span opened at
 depth 0 parents onto the study root span whose id ``TIP_OBS_ROOT`` holds
-(set by the JAX package's ``study_root``).
+(set by ``study_root``, in this process or a parent: children inherit the
+environment).
 
 Spans are context managers (``with span("fit", variant="dsa"):``) or
 decorators (``@traced()``); nesting is tracked per thread; each span
@@ -361,7 +362,7 @@ class Span:
             self._depth = len(stack)
         else:
             # Stack-root span: attach under the study root pinned into the
-            # environment (by the JAX package's study_root, possibly in
+            # environment (by study_root, possibly in
             # another process: children inherit os.environ), so top spans
             # merge into one study tree.
             root = os.environ.get(ROOT_ENV, "").strip() or None
@@ -395,6 +396,42 @@ class Span:
             rec["attrs"] = self.attrs
         write(rec)
         return False
+
+
+class _RootSpan(Span):
+    """The study root span: pins its id into the env for every child process."""
+
+    __slots__ = ("_prev_root",)
+
+    def __enter__(self):
+        self._prev_root = os.environ.get(ROOT_ENV)
+        super().__enter__()
+        os.environ[ROOT_ENV] = self._id
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        # Un-pin only our own id: a crashed inner study must not clear an
+        # outer root's pin.
+        if os.environ.get(ROOT_ENV) == self._id:
+            if self._prev_root is None:
+                os.environ.pop(ROOT_ENV, None)
+            else:
+                os.environ[ROOT_ENV] = self._prev_root
+        return super().__exit__(exc_type, exc_val, exc_tb)
+
+
+def study_root(name: str = "study", **attrs):
+    """Open the study-level root span and export its id to child processes.
+
+    Every span later opened at stack depth 0, in this process or any
+    spawned child that inherits the environment, parents onto this span, so
+    a whole multi-phase, multi-worker study merges into one tree. No-op when
+    telemetry is disabled.
+    """
+    if not _get_state().enabled:
+        return _NOOP
+    attrs.setdefault("kind", "study_root")
+    return _RootSpan(name, attrs)
 
 
 def span(name: str, **attrs):

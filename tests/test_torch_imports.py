@@ -5,7 +5,9 @@ neither of the last two), checked on the source, so lazy imports inside
 functions count too; every module imports without a card; and the study
 execution layer (the run scheduler, the fleet, the resilience modules, the
 log bridge and the device watchdog) imports neither torch nor numpy, so the
-scheduler's synthetic-phase workers start without them."""
+scheduler's synthetic-phase workers start without them; and the
+sequence-parallel modules and the full-study command load in a fresh
+interpreter without jax or the JAX package."""
 
 import ast
 import importlib
@@ -32,6 +34,8 @@ def _port_sources():
     yield os.path.join(ROOT, "scripts", "torch_flash_bwd_ab.py")
     yield os.path.join(ROOT, "scripts", "torch_cold_build_race.py")
     yield os.path.join(ROOT, "scripts", "torch_sched_phase.py")
+    yield os.path.join(ROOT, "scripts", "torch_gloo_cuda_probe.py")
+    yield os.path.join(ROOT, "scripts", "torch_sp_phase.py")
 
 
 def _imported_tops(path: str):
@@ -91,6 +95,28 @@ def test_study_execution_modules_import_no_torch(module):
         "import importlib, sys; importlib.import_module(sys.argv[1]); "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'numpy', 'jax', 'simple_tip_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", code, module], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+SEQUENCE_PARALLEL = (
+    "simple_tip_tpu_torch.parallel.exchange",
+    "simple_tip_tpu_torch.parallel.ring_attention",
+    "simple_tip_tpu_torch.parallel.ulysses_attention",
+    "simple_tip_tpu_torch.parallel.distributed",
+    "simple_tip_tpu_torch.full_study",
+)
+
+
+@pytest.mark.parametrize("module", SEQUENCE_PARALLEL)
+def test_sequence_parallel_modules_import_no_jax(module):
+    code = (
+        "import importlib, sys; importlib.import_module(sys.argv[1]); "
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'simple_tip_tpu')))"
     )
     out = subprocess.run([sys.executable, "-c", code, module], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
