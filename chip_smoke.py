@@ -283,7 +283,36 @@ Needs one CUDA card; exits non-zero without one (and without the
    ``active_learning_statistics``) and ``--phase check`` over the paths'
    assets: both tables written with their LaTeX paper tables, the four
    statistics CSVs the 39 x 39 grid under the human labels, every path's
-   run 0 complete (models, prio artifacts, times; MNIST's AL pickles).
+   run 0 complete (models, prio artifacts, times; MNIST's AL pickles);
+
+then phase 7f, the observability and planning plane (``obs/``, ``plan/``,
+``utils/flops.py``, ``utils/profiling.py``; ``run_obs_phase``), after
+phase 12 so that it moves no earlier phase: (c) ``store.refresh`` over the
+event streams of phases 7d and 7e into a fresh index, which must give rows
+of a non-TPU platform with positive seconds; ``python -m
+simple_tip_tpu_torch.obs predict`` for MNIST's ``test_prio`` (an estimate,
+or exit 3 on an insufficient corpus: which is printed) and ``python -m
+simple_tip_tpu_torch.plan suggest`` twice (byte-identical files, or exit 3
+twice); (d) the bundled SLO rules written (``slo.write_default_rules``)
+and one ``alerts.tick()`` over the live registry phases 7c-12 left, each
+rule's state printed; then, on a fresh registry, (a) ``detect_device()``
+must name the card and ``resolve_peaks`` give the H100 SXM entry (3xTF32
+FLOP/s, HBM3 bytes/s), MNIST run 0's fused chain walks its 10,000 nominal
+rows (replays of the captured graph; each dispatch graded by the run
+program's ``observe_dispatch`` against the chain's analytic cost,
+``devicemeter.chain_cost``: the forward's matmul FLOPs, and the bytes of
+the forward, the coverage metrics and the outputs) and B1
+scores the same rows in 5 launches of 2,000 (each graded against its
+analytic cost); the roofline rows (achieved FLOP/s and GB/s, MFU, HBM
+fraction, verdict) are printed beside the card's name and power limit, and
+the phase fails if a program cannot be graded, if its fastest dispatch
+grades a share above ``OBS_SHARE_CAP`` (the count would be wrong) or if B1
+did not launch; (b) the same walk and B1 under ``maybe_trace("chain_walk")``
+with ``TIP_PROFILE_DIR`` set, the ``torch.profiler`` trace spliced under
+its span (``obs/splice.py``): the spliced document must hold device kernel
+events inside the span's window, B1's among them, and the device's busy
+share of that window is printed (this window's only). A ``{"obs": ...}``
+line carries the phase's record.
 
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does each of its products (``UNITS``): 3xTF32
@@ -358,6 +387,7 @@ from simple_tip_tpu_torch.models.train import (
     evaluate_accuracy,
     training_rows,
 )
+from simple_tip_tpu_torch.obs import devicemeter
 from simple_tip_tpu_torch.ops import LAUNCH_COUNTERS, dsa_cuda, flash_attention, fused_forward
 from simple_tip_tpu_torch.ops.apfd import apfd_from_order
 from simple_tip_tpu_torch.ops.levenshtein import lev_matrix, levenshtein
@@ -377,6 +407,7 @@ from simple_tip_tpu_torch.serving import (
     drive,
 )
 from simple_tip_tpu_torch.utils import artifact_check, checkpoint
+from simple_tip_tpu_torch.utils.flops import conv_net_forward_flops
 
 START = time.perf_counter()  # the command's clock, from the imports on
 SMALL_TRAIN, SMALL_TEST = 2_000, 500
@@ -595,6 +626,24 @@ STUDY_RUNS = (0, 1)
 STUDY_TIMEOUT_S = 400
 # The flash kernels every rank of the sequence-parallel path must launch.
 SP_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# The observability and planning plane (phase 7f): the family whose run 0's
+# chain is walked and graded, B1's rows a launch on the same rows, the
+# largest share of a peak a graded dispatch may show, the device event
+# categories of a torch Chrome trace, and B1's kernel name there.
+OBS_FAMILY = "mnist"
+OBS_B1_ROWS = 2_000
+OBS_SHARE_CAP = 1.05
+OBS_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+OBS_B1_KERNEL = "mnist_forward_kernel"
+# What each graded program's analytic cost counts (the phase's record says it).
+OBS_COST_BASIS = {
+    "chain": "FLOPs: the forward's matmuls and convs (the MFU convention: the coverage's "
+             "comparisons are not FLOPs); bytes: the forward's activations, the taps read "
+             "once by the coverage, its thresholds once a dispatch, every profile, score and "
+             "output written once (devicemeter.chain_cost)",
+    "fused_forward": "FLOPs: the forward's matmuls and convs; bytes: the input read and the "
+                     "probabilities written once",
+}
 # Each kernel wrapper's launch counter (the names the workers' metrics use).
 COUNTERS = {name: (sys.modules[module], attr)
             for name, (module, attr) in LAUNCH_COUNTERS.items()}
@@ -3732,6 +3781,275 @@ def run_sp_phase(group: "SpGroup", dev) -> dict:
     return record
 
 
+# -- the observability and planning plane (phase 7f of the docstring) -------------
+
+
+def share_faults(programs: dict, peaks: dict) -> list:
+    """(a)'s gate: each program's analytic cost graded at its fastest
+    dispatch (``fastest_s``) against ``peaks``. A program that cannot be
+    graded (no peak, no cost, no dispatch) is a fault, and so is an MFU or
+    HBM fraction above ``OBS_SHARE_CAP``: the card cannot beat its peak, so
+    the count would be wrong."""
+    faults = [] if programs else ["no program was graded"]
+    for name, entry in sorted(programs.items()):
+        graded = devicemeter.grade(entry.get("cost"), entry.get("fastest_s"), peaks=peaks)
+        for key in ("mfu", "hbm_frac"):
+            value = graded[key]
+            if value is None:
+                faults.append(f"{name}: {key} cannot be graded ({graded['peak_label']}, "
+                              f"cost {entry.get('cost')}, fastest {entry.get('fastest_s')})")
+            elif value > OBS_SHARE_CAP:
+                faults.append(f"{name}: {key} {value:.4f} above {OBS_SHARE_CAP}")
+    return faults
+
+
+def device_events(spliced: list, window: tuple) -> list:
+    """The spliced device events (``OBS_DEVICE_CATS``) that overlap
+    ``window`` ([start, end] in the export's microseconds)."""
+    start, end = window
+    return [e for e in spliced
+            if e.get("cat") in OBS_DEVICE_CATS and isinstance(e.get("ts"), (int, float))
+            and e["ts"] <= end and e["ts"] + float(e.get("dur") or 0) >= start]
+
+
+def trace_faults(spliced: list, window: tuple) -> list:
+    """(b)'s gate: device kernel events inside the span's window, B1's
+    among them."""
+    inside = device_events(spliced, window)
+    if not any(e.get("cat") == "kernel" for e in inside):
+        return [f"no device kernel event in the span's window {window} "
+                f"({len(spliced)} spliced events)"]
+    if not any(OBS_B1_KERNEL in str(e.get("name")) for e in inside):
+        return [f"no {OBS_B1_KERNEL} event among the {len(inside)} device events of the window"]
+    return []
+
+
+def busy_share(events: list, window: tuple) -> float:
+    """The share of ``window`` in which at least one of ``events`` (device
+    events) ran: their union, clipped to the window, over its length."""
+    start, end = window
+    spans = sorted((max(start, e["ts"]), min(end, e["ts"] + float(e.get("dur") or 0)))
+                   for e in events)
+    busy, reach = 0.0, start
+    for lo, hi in spans:
+        lo = max(lo, reach)
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    return busy / (end - start) if end > start else 0.0
+
+
+def store_faults(rows: list) -> list:
+    """(c)'s gate on the refreshed index: rows of a non-TPU platform with
+    positive seconds."""
+    if any(r.get("platform") and str(r["platform"]).lower() != "tpu"
+           and isinstance(r.get("seconds"), (int, float)) and r["seconds"] > 0 for r in rows):
+        return []
+    return [f"the index holds no row of a non-TPU platform with positive seconds "
+            f"({len(rows)} rows)"]
+
+
+def plan_faults(codes: list, files: list) -> list:
+    """(c)'s gate on ``plan suggest`` run twice: byte-identical files, or
+    exit 3 (insufficient corpus) both times."""
+    if codes == [3, 3]:
+        return []
+    if codes == [0, 0] and files[0] and files[0] == files[1]:
+        return []
+    return [f"plan suggest twice: exits {codes}, files "
+            f"{'identical' if files[0] == files[1] else 'differ'}"]
+
+
+def _read_bytes(path: str):
+    """The file's bytes, or None when it is not there."""
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
+
+
+def _dispatch_s(fn, dev) -> float:
+    """Seconds of one call of ``fn``: CUDA events on the card, the host
+    clock on the CPU."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def obs_walk(runner, fused: dict, x: np.ndarray, dev, device_info: tuple) -> None:
+    """The graded walk: the chain over every badge of ``x`` (each dispatch
+    graded inside the runner), then B1 over the same rows in launches of
+    ``OBS_B1_ROWS``, each graded against its analytic cost."""
+    runner.score_dataset(x)
+    xs = to_device(x, dev)
+    platform, kind, count = device_info
+    for start in range(0, xs.shape[0], OBS_B1_ROWS):
+        xb = xs[start:start + OBS_B1_ROWS]
+        devicemeter.record_program_cost("fused_forward", {
+            "flops": float(conv_net_forward_flops(OBS_FAMILY) * xb.shape[0]),
+            "bytes_accessed": float(xb.numel() * 4 + xb.shape[0] * 10 * 4)})
+        with torch.no_grad():
+            dt = _dispatch_s(lambda: fused_forward.fused_mnist_probs(fused, xb), dev)
+        devicemeter.observe_dispatch("fused_forward", dt, platform=platform, device_kind=kind,
+                                     cores=count)
+
+
+def run_obs_phase(params, data, dev, root: str, smi: str) -> dict:
+    """Phase 7f: (c) the feature store, cost model and planner over phases
+    7d and 7e's streams, (d) one alert tick over the live registry, then (a)
+    the device meter over MNIST run 0's chain walk and B1, and (b) the same
+    walk traced and spliced. Returns the ``{"obs": ...}`` record."""
+    from simple_tip_tpu_torch.obs import alerts, slo, splice, store
+    from simple_tip_tpu_torch.obs.cli import load_events
+    from simple_tip_tpu_torch.utils import maybe_trace
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    faults, record = [], {}
+
+    # (c) the store, the cost model's quote and the planner, as operators run them
+    index = os.path.join(root, "obs_index")
+    sources = [os.path.join(root, d) for d in ("sched_obs", "study_obs", "sched_drills")]
+    report = store.refresh(sources, index)
+    rows = store.load_rows(index)
+    faults += store_faults(rows)
+
+    def module_cli(module, *argv):
+        return subprocess.run([sys.executable, "-m", module, *argv], cwd=here,
+                              capture_output=True, text=True, timeout=120)
+
+    pred = module_cli("simple_tip_tpu_torch.obs", "predict", "--phases", "test_prio",
+                      "--runs", "100", "--index", index, "--json")
+    if pred.returncode not in (0, 3):
+        faults.append(f"obs predict exited {pred.returncode}: {pred.stderr[-500:]}")
+    predicted = json.loads(pred.stdout) if pred.stdout.strip().startswith("{") else None
+    plans = [os.path.join(root, f"plan_{k}.json") for k in "ab"]
+    suggested = [module_cli("simple_tip_tpu_torch.plan", "suggest", "--phases", "test_prio",
+                            "--runs", "100", "--index", index, "-o", path) for path in plans]
+    codes = [r.returncode for r in suggested]
+    files = [_read_bytes(path) for path in plans]
+    faults += plan_faults(codes, files)
+    record["store"] = {"sources": report["sources"], "rows": len(rows),
+                       "platforms": sorted({str(r.get("platform")) for r in rows}),
+                       "phases": sorted({str(r.get("phase")) for r in rows})[:40]}
+    record["predict"] = {"exit": pred.returncode,
+                         "outcome": "estimate" if pred.returncode == 0 else "insufficient corpus",
+                         "total_s": (predicted or {}).get("total_s"),
+                         "basis": {p: i.get("basis") for p, i in
+                                   ((predicted or {}).get("by_phase") or {}).items()}}
+    record["plan"] = {"exits": codes, "identical": bool(files[0]) and files[0] == files[1],
+                      "plan_id": json.loads(files[0])["plan_id"] if codes[0] == 0 and files[0]
+                      else None}
+
+    # (d) the bundled SLO rules and one tick over the registry phases 7c-12 left
+    with patched_env({"TIP_ASSETS": os.path.join(root, "obs_assets"), "TIP_ALERT_RULES": None,
+                      "TIP_ALERT_STATE": os.path.join(root, "alerts"), "TIP_OBS_INDEX": index,
+                      "TIP_ALERT_SINKS": "jsonl"}):
+        slo.write_default_rules()
+        alerts.reset()
+        alerts.tick()
+        evaluator = alerts.get(create=False)
+        record["alerts"] = ({r["rule"]: r["state"] for r in evaluator.view()["rules"]}
+                            if evaluator is not None else None)
+        alerts.reset()
+    if record["alerts"] is None:
+        faults.append("the alert evaluator did not mount under the bundled rules")
+
+    # (a) the device meter, on a fresh registry
+    obs_dir = os.path.join(root, "obs_7f")
+    cfg = PATHS[OBS_FAMILY]
+    with patched_env({"TIP_OBS_DIR": obs_dir, "TIP_PROFILE_DIR": None,
+                      "TIP_ASSETS": os.path.join(root, "train")}):
+        obs.reset_all()
+        devicemeter.reset()
+        device_info = devicemeter.detect_device(dev)
+        platform, kind, count = device_info
+        peaks = devicemeter.resolve_peaks(platform, kind, count)
+        if dev.type == "cuda" and (platform != "gpu" or kind != torch.cuda.get_device_name(dev)
+                                   or peaks.get("analytic_only")):
+            faults.append(f"detect_device {device_info} / peaks {peaks} are not the card's")
+        runner = FusedChainRunner(cfg["model"](), params, data[0][0], cfg["nc"],
+                                  batch_size=cfg["batch"], device=dev)
+        fused = BaseModel(cfg["model"](), params, device=dev).fused
+        x = data[1][0]
+        b1_before = fused_forward.LAUNCHES
+        t0 = time.perf_counter()
+        obs_walk(runner, fused, x, dev, device_info)
+        synchronize(dev)
+        walk_s = time.perf_counter() - t0
+        b1_launches = fused_forward.LAUNCHES - b1_before
+        if dev.type == "cuda" and b1_launches <= 0:
+            faults.append("B1 did not launch in the graded walk")
+        programs = {}
+        for name in ("chain", "fused_forward"):
+            window = obs.quantile(f"run_program.dispatch_s.{name}")
+            programs[name] = {"cost": devicemeter.program_cost(name), "dispatch_s": window.summary(),
+                              "fastest_s": window.percentile(0)}
+        faults += share_faults(programs, peaks)
+        doc = devicemeter.build_breakdown(
+            {n: {"cost": e["cost"], "dispatch_s": e["dispatch_s"]} for n, e in programs.items()},
+            platform, kind, cores=count)
+        roofline = devicemeter.rows_from_breakdown(doc)
+        record["device"] = {"platform": platform, "kind": kind, "count": count,
+                            "peaks": peaks, "gpu": smi}
+        record["roofline"] = roofline
+        record["cost_basis"] = OBS_COST_BASIS
+        record["fastest_grades"] = {
+            n: {k: devicemeter.grade(e["cost"], e["fastest_s"], peaks=peaks)[k]
+                for k in ("mfu", "hbm_frac", "bound")} for n, e in programs.items()}
+        record["walk"] = {"rows": int(x.shape[0]), "seconds": walk_s,
+                          "chain_dispatches": runner.chain_dispatches, "b1_launches": b1_launches}
+        print(smi)
+        print(devicemeter.render_roofline(roofline, header=f"roofline of phase 7f on {smi}"))
+
+        # (b) the same walk traced, spliced under its span
+        with patched_env({"TIP_PROFILE_DIR": os.path.join(root, "profile")}):
+            t0 = time.perf_counter()
+            with maybe_trace("chain_walk"):
+                obs_walk(runner, fused, x, dev, device_info)
+            traced_s = time.perf_counter() - t0
+        obs.reset()  # closes the stream: every record on disk
+    events, _files, _bad = load_events(obs_dir)
+    span = next((r for r in events if r.get("type") == "span" and r.get("name") == "chain_walk"),
+                None)
+    trace = {"traced_walk_s": traced_s}
+    if span is None:
+        faults.append("no chain_walk span in the event stream")
+    else:
+        t0 = min(r["ts"] for r in events if isinstance(r.get("ts"), (int, float)))
+        spliced, lines = splice.splice(events, t0)
+        window = ((span["ts"] - t0) * 1e6, (span["ts"] + span["dur"] - t0) * 1e6)
+        faults += trace_faults(spliced, window)
+        inside = device_events(spliced, window)
+        started = ((span["attrs"].get("xla_started_ts") or span["ts"]) - t0) * 1e6
+        traced = (started, max([e["ts"] + float(e.get("dur") or 0) for e in inside] or [started]))
+        trace.update({
+            "splice": lines, "spliced_events": len(spliced), "device_events": len(inside),
+            "kernel_events": sum(e.get("cat") == "kernel" for e in inside),
+            "b1_events": sum(OBS_B1_KERNEL in str(e.get("name")) for e in inside),
+            "span_window_ms": (window[1] - window[0]) / 1e3,
+            "busy_share_of_span_window": busy_share(inside, window),
+            "traced_window_ms": (traced[1] - traced[0]) / 1e3,
+            "busy_share_of_traced_window": busy_share(inside, traced),
+            "label": "device busy share of this one traced window only, not a study's idle share",
+        })
+    record["trace"] = trace
+    record["phase_s"] = time.perf_counter() - t_phase
+    record["faults"] = faults
+    print(json.dumps({"obs": record, "gpu": smi}))
+    if faults:
+        raise AssertionError("observability plane: " + "; ".join(faults[:20]))
+    return record
+
+
 def al_spec(data):
     """MNIST's registry study for the AL phase: one-epoch retrains and the
     registry's AL settings (checked), its training base cut to the first
@@ -4155,6 +4473,7 @@ def main() -> int:
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
         evaluation = run_evaluation_and_check(root)
         sp["study"] = study_hosts.finish()
+        observability = run_obs_phase(params[OBS_FAMILY], data[OBS_FAMILY], dev, root, smi)
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -4170,6 +4489,7 @@ def main() -> int:
                       "serving_phase_s": serving["phase_s"],
                       "sched_phase_s": sched["phase_s"],
                       "sp_phase_s": sp["phase_s"],
+                      "obs_phase_s": observability["phase_s"],
                       "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
                       "command_s": time.perf_counter() - START}))
 
@@ -4217,7 +4537,7 @@ def main() -> int:
                        "fused_chain": {"paths": fused, "graph_vs_eager": graph_eager,
                                        "group_runner": group},
                        "serving": serving, "study_execution": sched,
-                       "sequence_parallel": sp,
+                       "sequence_parallel": sp, "observability": observability,
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,17 @@ The runners count their dispatches as plain attributes
 (``chain_dispatches``, ``rank_dispatches``, ``group_chain_dispatches``,
 ``select_dispatches``).
 
+Device cost (``obs/devicemeter.py``): a CUDA graph has no XLA cost
+analysis, so where a runner resolves or binds its chain program it stamps
+the program's analytic cost (``devicemeter.chain_cost``: the family's
+forward FLOPs and, for the convnets, its HBM bytes, plus the bytes of the
+coverage metrics and the outputs, over the badge's rows; the grouped
+chain's over every slot of the group) under ``chain`` / ``group_chain``. Each chain dispatch of a walk is timed (CUDA events on
+the card, read after the walk's own synchronisation, so the timing adds
+none; ``perf_counter`` on the CPU) and graded by
+``devicemeter.observe_dispatch``. The rank (whose greedy picks depend on
+the data) and the select record their latency only: they get no cost.
+
 Threads (the scoring service dispatches from worker threads): a program
 has one set of buffers, so a walk or a dispatch holds its ``lock`` from
 binding weights to reading outputs; every walk holds ``DEVICE_GATE``
@@ -56,17 +67,20 @@ import copy
 import hashlib
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from simple_tip_tpu_torch.device import DeviceLike, resolve
+from simple_tip_tpu_torch.obs import devicemeter
 from simple_tip_tpu_torch.engine.coverage_handler import PROFILE_BADGE_SIZE, CoverageWorker
 from simple_tip_tpu_torch.engine.model_handler import DROPOUT_SAMPLE_SIZE, BaseModel
 from simple_tip_tpu_torch.engine.sa_prep import BACKEND_TAG
 from simple_tip_tpu_torch.models.predict import mc_dropout_votes, to_device
 from simple_tip_tpu_torch.ops import dsa_cuda, flash_attention, fused_forward
+from simple_tip_tpu_torch.ops.coverage import KMNC, NAC, NBC, SNAC
 from simple_tip_tpu_torch.ops.fused_chain import (
     ThresholdCodebook,
     make_chain_fn,
@@ -78,6 +92,7 @@ from simple_tip_tpu_torch.ops.fused_chain import (
 )
 from simple_tip_tpu_torch.ops.prioritizers import _with_score_tail
 from simple_tip_tpu_torch.ops.timer import Timer
+from simple_tip_tpu_torch.ops.uncertainty import POINT_PRED_QUANTIFIERS
 
 #: Bump when the chain/rank program semantics change.
 PROGRAM_FORMAT_VERSION = "run-program-torch-v1"
@@ -98,6 +113,97 @@ KERNEL_COUNTERS = (
 
 _RESOLVED: "collections.OrderedDict[str, Program]" = collections.OrderedDict()
 _COUNTER_LOCK = threading.Lock()
+#: (platform, device kind, count) per device, for dispatch grading.
+_DEVICE_INFO: Dict[str, tuple] = {}
+
+
+def _device_info(device: torch.device) -> tuple:
+    key = str(device)
+    if key not in _DEVICE_INFO:
+        _DEVICE_INFO[key] = devicemeter.detect_device(device)
+    return _DEVICE_INFO[key]
+
+
+def _observe_dispatch(program: str, dt_s: float, device: torch.device) -> None:
+    """Grade one measured dispatch against the program's analytic cost
+    (the devicemeter registry, stamped where the program is bound)."""
+    platform, kind, count = _device_info(device)
+    devicemeter.observe_dispatch(program, dt_s, platform=platform, device_kind=kind,
+                                 cores=count)
+
+
+#: Bytes a chain writes per input besides its profiles: the int64
+#: prediction and one f32 per uncertainty quantifier.
+_HEAD_BYTES = 8 + 4 * len(POINT_PRED_QUANTIFIERS)
+
+
+def _coverage_layout(metrics, n_neurons: int, int8: bool) -> tuple:
+    """``(n_neurons, profile bits of each metric, threshold bytes)`` of one
+    member's chain dispatch over ``n_neurons`` tapped neurons. With the
+    int8 coding the threshold metrics read the codebook's cut table (an f32
+    value, a bool and an int32 rank per neuron and cut) in place of their
+    own thresholds; TKNC reads none."""
+    n = int(n_neurons)
+    bits, floats, cuts = [], 0, 0
+    for m in metrics.values():
+        if isinstance(m, NBC):
+            bits.append(2 * n)
+            floats, cuts = floats + 2 * n, cuts + 2
+        elif isinstance(m, KMNC):
+            bits.append(m.sections * n)
+            floats, cuts = floats + 2 * n, cuts + m.sections + 1
+        elif isinstance(m, SNAC):
+            bits.append(n)
+            floats, cuts = floats + n, cuts + 1
+        else:
+            bits.append(n)
+            cuts += isinstance(m, NAC)
+    return n, bits, 9 * n * cuts if int8 else 4 * floats
+
+
+def _stamp_cost(program: str, model_def, rows: int, layout: tuple, members: int = 1) -> None:
+    """Register ``program``'s analytic cost: ``members`` x ``rows`` chain
+    rows of the family of ``model_def`` over the coverage ``layout``
+    (``_coverage_layout``; none for a model without a count)."""
+    n, bits, table_bytes = layout
+    try:
+        cost = devicemeter.chain_cost(getattr(model_def, "family", ""), members * rows, n, bits,
+                                      table_bytes=members * table_bytes, head_bytes=_HEAD_BYTES)
+    except ValueError:
+        cost = None
+    devicemeter.record_program_cost(program, cost)
+
+
+class _DispatchClock:
+    """Seconds of each dispatch of a walk: CUDA events on the card, read
+    once the walk has synchronised; ``perf_counter`` on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+        self._start = None
+
+    def start(self) -> None:
+        if self.cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        else:
+            end = time.perf_counter()
+        self.marks.append((self._start, end))
+
+    def seconds(self) -> List[float]:
+        if self.cuda:
+            if self.marks:
+                self.marks[-1][1].synchronize()
+            return [s.elapsed_time(e) / 1e3 for s, e in self.marks]
+        return [e - s for s, e in self.marks]
 
 
 class DeviceGate:
@@ -467,6 +573,9 @@ class FusedChainRunner:
         self.model_def = model_def
         self.net = self.base_model.net
         self.worker = CoverageWorker(base_model=self.base_model, training_set=training_set)
+        # tapped neurons: the training statistics hold one tensor a layer
+        self._layout = _coverage_layout(
+            self.worker.metrics, sum(int(t.numel()) for t in self.worker.stats[0]), self.int8)
         self.weights = self.net.state_dict()
         self._programs: Dict[tuple, Program] = {}
         self._select_programs: Dict[tuple, Program] = {}
@@ -498,6 +607,7 @@ class FusedChainRunner:
 
             prog = resolve_program(fp, build)
             self._programs[key] = prog
+        _stamp_cost("chain", self.model_def, x_shape[0], self._layout)
         with prog.lock:
             self.bind(prog)
         return prog
@@ -540,7 +650,9 @@ class FusedChainRunner:
         buf.zero_()
         buf[:n].copy_(torch.from_numpy(values))
         valid.fill_(n)
+        t0 = time.perf_counter()
         picked = prog().cpu().numpy()
+        _observe_dispatch("select", time.perf_counter() - t0, self.device)
         self.select_dispatches += 1
         return picked.astype(np.int64)
 
@@ -557,17 +669,23 @@ class FusedChainRunner:
         # resolved (captured) before the clock, as a compile is in the JAX
         # package: the chain's seconds are the badges'
         prog = self.chain_program(*badge_layout(x, bs, self.device))
+        clock = _DispatchClock(self.device)
         with DEVICE_GATE.shared(), prog.lock, Timer(device=self.device) as chain_timer:
             self.bind(prog)
             xs = to_device(x, self.device)
             _, x_buf, valid_buf = prog.args
             for start in range(0, n, bs):
                 _load_badge(x_buf, valid_buf, xs, start)
-                walk.add(start, prog(), n_pad)
+                clock.start()
+                outputs = prog()
+                clock.stop()
+                walk.add(start, outputs, n_pad)
                 self.chain_dispatches += 1
             pred = walk.host(("pred",), n)
             uncertainties = walk.uncertainties(n)
             scores = {mid: walk.host(("score", mid), n) for mid in self.worker.metrics}
+        for dt in clock.seconds():
+            _observe_dispatch("chain", dt, self.device)
         return pred, uncertainties, scores, walk, chain_timer.get()
 
     def score_dataset(self, x: np.ndarray) -> Dict:
@@ -602,6 +720,7 @@ class FusedChainRunner:
                 order = _with_score_tail(scores[mid], picked)
             self.rank_dispatches += 1
             cov_times[mid].append(timer.get())
+            _observe_dispatch("rank", timer.get(), self.device)
             _sanity_check(order, scores[mid])
             cam_orders[mid] = order
         if seed is not None and getattr(self.net, "has_dropout", False):
@@ -800,6 +919,8 @@ class GroupChainRunner:
 
             prog = resolve_program(fp, build)
             self._programs[key] = prog
+        _stamp_cost("group_chain", self.model_def, x_shape[0],
+                    _coverage_layout(self.metrics, n_neurons, int8=True), self.group_size)
         self._tables_bound = tables
         with prog.lock:
             prog.bound = None
@@ -853,6 +974,7 @@ class GroupChainRunner:
         n_pad = -(-n // bs) * bs
         walk = _Walk()
         prog = self.chain_program(x, *badge_layout(x, bs, self.device))
+        clock = _DispatchClock(self.device)
         with DEVICE_GATE.shared(), prog.lock, Timer(device=self.device) as chain_timer:
             self.bind(prog)
             xs = to_device(x, self.device)
@@ -860,11 +982,16 @@ class GroupChainRunner:
             members_buf.fill_(m)
             for start in range(0, n, bs):
                 _load_badge(x_buf, valid_buf, xs, start)
-                walk.add(start, prog(), n_pad)
+                clock.start()
+                outputs = prog()
+                clock.stop()
+                walk.add(start, outputs, n_pad)
                 self.group_chain_dispatches += 1
             pred = walk.host(("pred",), n)
             unc = walk.uncertainties(n)
             scores = {mid: walk.host(("score", mid), n) for mid in self.metrics}
+        for dt in clock.seconds():
+            _observe_dispatch("group_chain", dt, self.device)
         share = chain_timer.get() / m
         results = []
         for g in range(m):
@@ -881,6 +1008,7 @@ class GroupChainRunner:
             with Timer(device=self.device) as timer:
                 picks = [p.cpu().numpy() for p in rank_badges_grouped((walk.packed(mid)[:m],))]
             self.rank_dispatches += 1
+            _observe_dispatch("group_rank", timer.get(), self.device)
             for g in range(m):
                 order = _with_score_tail(results[g]["scores"][mid], picks[g])
                 _sanity_check(order, results[g]["scores"][mid])
@@ -902,7 +1030,9 @@ class GroupChainRunner:
                 for g in range(m):
                     vals[g, :n] = np.asarray(results[g]["uncertainties"][name], np.float32)
                 buf.copy_(torch.from_numpy(vals))
+                t0 = time.perf_counter()
                 picked = sel().cpu().numpy()
+                _observe_dispatch("group_select", time.perf_counter() - t0, self.device)
                 self.select_dispatches += 1
                 for g in range(m):
                     results[g].setdefault("al_select", {})[name] = picked[g].astype(np.int64)

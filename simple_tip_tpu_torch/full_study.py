@@ -22,10 +22,15 @@ there is no probe, as in the JAX package. ``TIP_OBS_DIR`` defaults to
 (``obs.study_root``) holds every phase span, each evaluation has a span,
 each rendezvous an event, and the host's kernel launches are gauges.
 
-Not ported: ``--plan`` and ``TIP_PLAN_FILE`` (the knob planner, ``plan/``)
-exit 2; the cost model's quote of the study's seconds and the feature
-store's refresh after it (``obs/costmodel.py``, ``obs/store.py``) are
-left out.
+``--plan FILE`` (or an inherited ``TIP_PLAN_FILE``) activates an execution
+plan (``python -m simple_tip_tpu_torch.plan suggest``) before anything
+reads a knob: its assignment goes into the environment and its id onto the
+root span. A file that is not a valid plan, or one naming a knob the port
+does not read (``plan/knobs.NOT_PORTED``), exits 2. Before the study the
+cost model (``obs/costmodel.py``) quotes its seconds over the feature store
+(``predicted_s`` on the root span, beside ``actual_s``); after it the
+store's index is refreshed with the study's trace (``obs/store.py``).
+Both are advisory: an empty index changes nothing.
 """
 
 import argparse
@@ -43,19 +48,51 @@ from simple_tip_tpu_torch.cli import EVALS, _parse_runs, _run_eval, dispatch_pha
 from simple_tip_tpu_torch.device import resolve
 from simple_tip_tpu_torch.ops import launch_counts
 from simple_tip_tpu_torch.parallel import distributed
+from simple_tip_tpu_torch.plan import PLAN_FILE_ENV
 from simple_tip_tpu_torch.resilience import BackendUnavailable
 from simple_tip_tpu_torch.utils.device_watchdog import ensure_responsive_backend
 
 logger = logging.getLogger("full_study")
 DEFAULT_PHASES = ("training", "test_prio", "active_learning", "evaluation")
 ALL_PHASES = ("training", "test_prio", "active_learning", "at_collection", "evaluation")
-PLAN_FILE_ENV = "TIP_PLAN_FILE"
+
+
+def _apply_plan(argv):
+    """Activate an execution plan before any knob-reading code runs.
+
+    ``--plan FILE`` (pre-scanned here: argparse builds its defaults from the
+    knob env) or an inherited ``TIP_PLAN_FILE`` is loaded and validated,
+    and its knob assignment exported into the environment, so the
+    scheduler's workers and the serving layer launch under it. Returns
+    ``(plan document or None, error or None)``."""
+    from simple_tip_tpu_torch.plan import knobs, plan as plan_mod
+
+    path = None
+    for i, arg in enumerate(argv):
+        if arg == "--plan" and i + 1 < len(argv):
+            path = argv[i + 1]
+        elif arg.startswith("--plan="):
+            path = arg.split("=", 1)[1]
+    if path:
+        os.environ[PLAN_FILE_ENV] = os.path.abspath(path)
+    raw = os.environ.get(PLAN_FILE_ENV, "").strip()
+    if not raw:
+        return None, None
+    try:
+        doc = plan_mod.load(raw)
+    except plan_mod.PlanError as e:
+        return None, f"full_study: {raw} is not a valid plan: {e}"
+    os.environ.update(knobs.assignment_env(doc["assignment"]))
+    print(f"plan {doc['plan_id']}: applied "
+          f"{','.join(f'{k}={v}' for k, v in sorted(doc['assignment'].items()))}")
+    return doc, None
 
 
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plan", default=None,
-                        help="an execution plan (not ported: exits 2)")
+                        help="an execution plan file (python -m "
+                        "simple_tip_tpu_torch.plan suggest); same as TIP_PLAN_FILE")
     parser.add_argument("--case-studies", default="mnist,fmnist,cifar10,imdb",
                         help="comma-separated subset of case studies")
     parser.add_argument("--runs", default="-1", help="'-1' = all 100, or '0-9', '0,3,7', '5'")
@@ -77,12 +114,12 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     """Run the study; returns the exit code."""
+    active_plan, error = _apply_plan(sys.argv[1:] if argv is None else list(argv))
+    if error:
+        print(error, file=sys.stderr)
+        return 2
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.plan is not None or os.environ.get(PLAN_FILE_ENV):
-        print("full_study: execution plans (--plan, TIP_PLAN_FILE) are not ported",
-              file=sys.stderr)
-        return 2
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING)
     if os.environ.get("TIP_ASSETS") and not os.environ.get("TIP_OBS_DIR"):
@@ -121,25 +158,77 @@ def main(argv=None) -> int:
                 return 2
         if device.type == "cpu":
             logger.warning("running on the CPU")
-        run_study(phases, case_studies, _parse_runs(args.runs), device, max(1, args.workers))
+        run_study(phases, case_studies, _parse_runs(args.runs), device, max(1, args.workers),
+                  plan_id=active_plan["plan_id"] if active_plan else None)
         return 0
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def run_study(phases, case_studies, all_runs, device, workers: int = 1) -> None:
+def quote_study(phases, case_studies: int, runs: int, platform: str, workers: int):
+    """The cost model's wall-clock estimate of the study over the feature
+    store, printed; its seconds, or None (no index, or no phase with an
+    estimate). Advisory: never raises."""
+    try:
+        from simple_tip_tpu_torch.obs import costmodel, store
+
+        corpus = store.load_rows()
+        if not corpus:
+            return None
+        prediction = costmodel.predict_study(
+            costmodel.fit(corpus), [p for p in phases if p != "evaluation"],
+            runs=runs, case_studies=case_studies, platform=platform, workers=workers,
+        )
+        if not prediction["ok"]:
+            print("cost model: insufficient corpus for every phase: no wall-clock "
+                  "prediction (grow the index with `python -m simple_tip_tpu_torch.obs runs`)")
+            return None
+        insufficient = prediction["insufficient"]
+        print(f"cost model: predicted wall-clock {prediction['total_s']:.0f}s "
+              f"(+/- {prediction['error_s']:.0f}s)"
+              + (f"; insufficient corpus for {','.join(insufficient)}" if insufficient else ""))
+        return prediction["total_s"]
+    except Exception:  # noqa: BLE001 — advisory, never blocks a launch
+        return None
+
+
+def refresh_store() -> None:
+    """Fold this study's trace into the feature-store index, so the next
+    launch predicts from it. Advisory: never raises."""
+    try:
+        from simple_tip_tpu_torch.obs import store
+
+        if obs.enabled() and obs.obs_dir():
+            report = store.refresh([obs.obs_dir()])
+            print(f"obs index: +{report['rows_appended']} rows -> "
+                  f"{report['rows_total']} ({report['index']})")
+    except Exception:  # noqa: BLE001 — advisory, never blocks the exit
+        pass
+
+
+def run_study(phases, case_studies, all_runs, device, workers: int = 1,
+              plan_id=None) -> None:
     """This host's share of ``all_runs`` through ``phases`` for each case
-    study, on ``device``; process 0 aggregates at ``evaluation``."""
+    study, on ``device``; process 0 aggregates at ``evaluation``.
+    ``plan_id`` (the active plan's) is stamped onto the root span."""
     rank, hosts = distributed.process_index(), distributed.process_count()
     my_runs = distributed.host_local_model_ids(all_runs)
     local = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"host {rank}/{hosts}: {len(my_runs)}/{len(all_runs)} runs, "
           f"{local} local device(s), platform {device.type}", flush=True)
 
+    predicted_s = quote_study(phases, len(case_studies), len(my_runs),
+                              "cpu" if device.type == "cpu" else "gpu", workers)
+    stamps = {}
+    if predicted_s:
+        stamps["predicted_s"] = predicted_s
+    if plan_id:
+        stamps["plan"] = plan_id
     started = time.perf_counter()
     with obs.study_root("full_study", case_studies=",".join(case_studies),
-                        phases=",".join(phases), runs=len(my_runs), host=rank) as study_span:
+                        phases=",".join(phases), runs=len(my_runs), host=rank,
+                        **stamps) as study_span:
         for phase in phases:
             if phase == "evaluation":
                 _evaluate(rank, case_studies, len(all_runs))
@@ -154,6 +243,7 @@ def run_study(phases, case_studies, all_runs, device, workers: int = 1) -> None:
         study_span.set(actual_s=round(time.perf_counter() - started, 3))
     obs.record_kernel_launches(launch_counts())
     obs.flush_metrics()
+    refresh_store()
     if obs.enabled():
         print(f"obs events in {obs.obs_dir()}")
 

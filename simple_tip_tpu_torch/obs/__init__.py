@@ -1,7 +1,7 @@
-"""Telemetry of the port: span tracing, a metrics registry, a live exporter.
+"""Telemetry of the port: spans, metrics, the live exporter, and the
+observability and planning plane over them.
 
-Counterpart of the JAX package's ``obs`` package, reduced to what the
-scoring service and the resilience helpers use:
+Counterpart of the JAX package's ``obs`` package:
 
 - ``obs.span("serving.badge", rows=512)`` / ``@obs.traced()``  nested spans
   into the JSONL stream under ``TIP_OBS_DIR`` (``tracer``; no-op when unset);
@@ -10,8 +10,26 @@ scoring service and the resilience helpers use:
   span, its id pinned into the environment for child processes;
 - ``obs.counter`` / ``gauge`` / ``histogram`` / ``quantile``  the always-live
   registry (``metrics``), read by ``metrics_snapshot()``;
-- ``exporter``: ``/healthz``, ``/metrics``, ``/slo`` over HTTP when
-  ``TIP_OBS_HTTP`` is set.
+- ``exporter``: ``/healthz``, ``/metrics``, ``/slo``, ``/fleet`` and
+  ``/alerts`` over HTTP when ``TIP_OBS_HTTP`` is set;
+- ``devicemeter``: analytic program costs graded against the card's peaks
+  (``utils/flops.py``: the H100 SXM's; any other device analytic-only),
+  the per-dispatch gauges ``engine/run_program.py`` feeds, and the
+  ``mfu_breakdown`` document;
+- ``splice``: a ``utils/profiling.maybe_trace`` phase's ``torch.profiler``
+  trace shifted under its span;
+- ``store`` / ``costmodel``: the feature-store index of every run's cost
+  features and the per-phase cost model over it (rows of platform ``tpu``
+  left out), quoted by the scheduler, the fleet, admission and
+  ``full_study``;
+- ``slo`` / ``alerts``: SLO rule documents, burn rates, the alert state
+  machine and incidents, ticked by the scoring engine, the run scheduler
+  and the fleet parent;
+- ``regress`` / ``live``: cross-run regression and trend gates, and
+  ``tail`` / ``top`` / ``audit``;
+- ``python -m simple_tip_tpu_torch.obs summary|export|check|regress|runs|
+  predict|trend|roofline|alerts|incidents|tail|top|audit``: the
+  inspection CLI (``cli``), with the JAX package's commands and exit codes.
 
 - ``install_worker_logging`` (``logbridge``): a spawned worker's log
   records to stderr and into its event stream;
@@ -19,8 +37,10 @@ scoring service and the resilience helpers use:
   ``poll_device_memory``: the card's memory high-water and the launch
   counts a caller hands in as gauges (the scheduler's workers flush them).
 
-Stdlib only. The JAX package's compile hook, feature store, cost model,
-alert evaluator and inspection CLI are not ported.
+Stdlib only: every module here imports without torch (``devicemeter.
+detect_device`` and ``maybe_trace``'s profiler import it when called). The
+JAX package's compile hook (``install_jax_hooks``) has no counterpart: the
+port compiles no XLA.
 """
 
 from simple_tip_tpu_torch.obs.logbridge import install_worker_logging
@@ -70,10 +90,13 @@ __all__ = [
 
 
 def reset_all() -> None:
-    """Test hook: reset the tracer, the metrics registry and the exporter."""
-    from simple_tip_tpu_torch.obs import exporter, logbridge, metrics, tracer
+    """Test hook: reset the tracer, metrics, log bridge, alerts, exporter."""
+    # alerts is imported here, not at module level, so the package root
+    # stays free of import cycles: alerts imports exporter, metrics, slo.
+    from simple_tip_tpu_torch.obs import alerts, exporter, logbridge, metrics, tracer
 
     logbridge.reset()
     tracer.reset()
     metrics.reset()
+    alerts.reset()  # before exporter.reset(): drops its /alerts provider
     exporter.reset()

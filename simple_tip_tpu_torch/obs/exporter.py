@@ -1,4 +1,4 @@
-"""Live telemetry plane: /healthz /metrics /slo /fleet (stdlib HTTP).
+"""Live telemetry plane: /healthz /metrics /slo /fleet /alerts (stdlib HTTP).
 
 Counterpart of the JAX package's ``obs/exporter.py``: a daemon
 ``http.server`` thread that a long-lived process (the scoring engine, the
@@ -12,8 +12,10 @@ run scheduler, the fleet parent) mounts with :func:`start`:
 - ``/slo``      the scoring engine's ``slo_snapshot()`` (JSON), while an
   engine serves;
 - ``/fleet``    the fleet parent's membership and lease view
-  (``parallel/fleet.py``), while a fleet runs. (The JAX package's
-  ``/alerts`` serves a module the port does not have.)
+  (``parallel/fleet.py``), while a fleet runs;
+- ``/alerts``   the SLO evaluator's cached per-rule alert states, burn
+  rates and open incidents (``obs/alerts.py``), while an evaluator is
+  mounted in this process.
 
 ``TIP_OBS_HTTP`` unset / empty / ``0`` / ``off`` means no socket, no
 thread; ``<port>`` binds that port on 127.0.0.1, ``auto`` an ephemeral
@@ -52,7 +54,7 @@ _providers: Dict[str, Callable[[], dict]] = {}
 _health: Dict[str, Dict] = {}
 
 _NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
-ROUTES = ("/healthz", "/metrics", "/slo")
+ROUTES = ("/healthz", "/metrics", "/slo", "/fleet", "/alerts")
 
 
 def _resolve_port() -> Optional[int]:
@@ -247,7 +249,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply_json(200 if doc["ok"] else 503, doc)
         elif path == "/metrics":
             self._reply(200, render_metrics(), "text/plain; version=0.0.4")
-        elif path in ("/slo", "/fleet"):
+        elif path in ("/slo", "/fleet", "/alerts"):
             provider = _providers.get(path[1:])
             if provider is None:
                 self._reply_json(
@@ -333,7 +335,7 @@ def stop() -> None:
 
 
 def set_provider(name: str, fn: Callable[[], dict]) -> None:
-    """Register the ``/slo`` body source.
+    """Register the ``/slo``, ``/fleet`` or ``/alerts`` body source.
 
     ``fn`` runs on a request thread and MUST be an in-memory read (a
     cached view, the metrics registry) — never filesystem or device work.

@@ -15,12 +15,15 @@ mid-unit without losing work or completing it twice.
   extra duty is straggler speculation: a lease older than
   ``TIP_FLEET_STRAGGLER_S`` is expired early (never revoked; the fencing
   epoch at the journal decides which commit stands). Without that knob
-  the JAX package sizes the timeout from its cost model; the port has no
-  cost model, so there is no estimate and no speculation.
+  the timeout is sized from the active plan's per-run estimate, else the
+  cost model's (``obs/costmodel.py``); with neither (an empty index) there
+  is no speculation.
 - ``run_phase_fleet``: spawns N member processes, each the ordinary
   ``run_phase_parallel`` with a ``FleetContext``, and watches the journal;
   if every member dies with work left it launches standbys (up to
   ``TIP_FLEET_MAX_STANDBYS``, default 1) that steal the expired leases.
+  Its loop refreshes the ``/fleet`` view and ticks the SLO evaluator
+  (``obs/alerts.py``) on the beat cadence.
 
 Exactly once: a member commits a unit only through
 ``RunJournal.mark_done(fence=token)``. Stdlib only.
@@ -206,10 +209,10 @@ class FleetContext:
     def _straggler_timeout(self) -> Optional[float]:
         """Age past which a live lease is speculatively re-leased, or None.
 
-        ``TIP_FLEET_STRAGGLER_S`` (0 disables). Without it the JAX package
-        sizes the timeout from its cost model's per-run estimate; the port
-        has no cost model, so its estimate is None (the JAX answer on an
-        empty index) and nothing is speculated."""
+        ``TIP_FLEET_STRAGGLER_S`` (0 disables). Without it: the p95 of the
+        plan's (else the cost model's) per-run estimate times
+        ``TIP_FLEET_STRAGGLER_SLACK`` (default 4), at least 1 s; None
+        (nothing speculated) when there is no estimate."""
         if self._straggler_cache != ("unset",):
             return self._straggler_cache[0]
         timeout: Optional[float] = None
@@ -219,6 +222,25 @@ class FleetContext:
                 timeout = float(raw) or None  # 0 disables
             except ValueError:
                 logger.warning("TIP_FLEET_STRAGGLER_S=%r is not a number", raw)
+        else:
+            try:
+                # Plan first: speculation sized from the same per-phase
+                # prediction the planner committed to (and `obs audit`
+                # grades), falling back to the live cost model.
+                from simple_tip_tpu_torch import plan as _plan
+                from simple_tip_tpu_torch.obs import costmodel
+
+                est = _plan.phase_estimate(self.phase, 1, workers=1)
+                if est is None:
+                    est = costmodel.quick_phase_estimate(
+                        self.phase, 1, workers=1
+                    )
+            except Exception:  # noqa: BLE001 — advisory, never fatal
+                est = None
+            if est is not None:
+                slack = _env_float("TIP_FLEET_STRAGGLER_SLACK", 4.0)
+                p95 = est["predicted_s"] + 2.0 * (est.get("error_s") or 0.0)
+                timeout = max(p95 * slack, 1.0)
         self._straggler_cache = (timeout,)
         return timeout
 
@@ -536,6 +558,7 @@ def run_phase_fleet(
     # Live telemetry: the fleet parent serves the coordinator-aggregated
     # /fleet view (and /healthz, /metrics) while the fleet runs. No-op unless
     # TIP_OBS_HTTP is set; members do not mount: one port, one view.
+    from simple_tip_tpu_torch.obs import alerts as alerts_mod
     from simple_tip_tpu_torch.obs import exporter
 
     http_port = exporter.start()
@@ -583,9 +606,14 @@ def run_phase_fleet(
                     f"fleet did not drain within {deadline_s:.0f}s; "
                     f"unresolved: {_unresolved()}"
                 )
-            if http_port is not None and time.monotonic() >= next_view:
+            if (
+                http_port is not None or alerts_mod.enabled()
+            ) and time.monotonic() >= next_view:
                 # Refresh the cached /fleet view on the beat cadence from
-                # THIS loop: handler threads only ever read the cache.
+                # THIS loop: handler threads only ever read the cache. The
+                # SLO evaluator rides the same beat (its fleet-members-alive
+                # rule samples the gauge set here), with or without a live
+                # exporter.
                 next_view = time.monotonic() + probe.beat_interval_s
                 view = probe.fleet_view()
                 fleet_members = view.get("members", {})
@@ -593,11 +621,13 @@ def run_phase_fleet(
                     h for h, m in fleet_members.items() if not m.get("stale")
                 ]
                 obs.gauge("fleet.members_alive").set(len(alive))
-                exporter.set_health(
-                    "fleet", ok=bool(alive), members_alive=len(alive),
-                    members_total=len(fleet_members),
-                    unresolved=len(_unresolved()),
-                )
+                alerts_mod.tick()
+                if http_port is not None:
+                    exporter.set_health(
+                        "fleet", ok=bool(alive), members_alive=len(alive),
+                        members_total=len(fleet_members),
+                        unresolved=len(_unresolved()),
+                    )
             if not any(p.is_alive() for p in members):
                 if standbys >= max_standbys:
                     break  # nobody left and no standby budget: report below

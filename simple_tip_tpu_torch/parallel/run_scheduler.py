@@ -465,20 +465,46 @@ def run_phase_parallel(
     # read only in-memory state, so every filesystem-backed health input
     # (breaker state file, journal flock) is polled HERE, on the scheduler
     # loop's cadence, and pushed in.
+    from simple_tip_tpu_torch.obs import alerts as alerts_mod
     from simple_tip_tpu_torch.obs import exporter
     from simple_tip_tpu_torch.resilience.breaker import CircuitBreaker
 
     http_port = exporter.start()
     health_breaker = CircuitBreaker.from_env() if http_port is not None else None
-    # The JAX package quotes its cost model's estimate here (predicted_s on
-    # the span); the port has no cost model, which is that model's answer
-    # on an empty index: no estimate.
+    # Admission control: quote the wall-clock estimate for this phase before
+    # launching, and stamp predicted_s beside the span's eventual actual_s,
+    # so every executed study grades (and feeds) the corpus. An active plan
+    # outranks the live fit: its prediction is what the planner chose the
+    # knobs against, and its id rides the span. Advisory: no index, no
+    # estimate, no change.
+    from simple_tip_tpu_torch import plan as _plan
+    from simple_tip_tpu_torch.obs import costmodel as _costmodel
+
+    estimate = _plan.phase_estimate(phase, len(pending), workers=num_workers)
+    if estimate is None:
+        estimate = _costmodel.quick_phase_estimate(
+            phase, len(pending), workers=num_workers
+        )
+    predicted = {}
+    if _plan.active_plan() is not None:
+        predicted["plan"] = _plan.active_plan_id()
+    if estimate is not None:
+        predicted["predicted_s"] = estimate["predicted_s"]
+        logger.info(
+            "[%s] %s: %s predicts %.1fs (+/- %.1fs, basis=%s, "
+            "corpus=%s rows) for %d runs on %d workers",
+            case_study, phase,
+            "plan" if estimate.get("basis") == "plan" else "cost model",
+            estimate["predicted_s"],
+            estimate.get("error_s") or 0.0, estimate.get("basis"),
+            estimate.get("corpus_rows"), len(pending), num_workers,
+        )
     phase_span = obs.span(
         "scheduler.phase", phase=phase, case_study=case_study,
         runs=len(model_ids), workers=num_workers,
         journal_skipped=len(skipped),
         fused_chain=os.environ.get("TIP_FUSED_CHAIN", "").strip().lower()
-        in ("1", "on", "true"),
+        in ("1", "on", "true"), **predicted,
     )
     phase_span.__enter__()
     phase_started = time.perf_counter()
@@ -572,7 +598,9 @@ def run_phase_parallel(
         scheduler gauges, run one alert-evaluator tick, and push the
         health components into the exporter. Runs on the scheduler loop
         (``_HEALTH_PUSH_S`` cadence) so HTTP handler threads never touch
-        the breaker state file or the journal flock themselves."""
+        the breaker state file or the journal flock themselves; the SLO
+        evaluator (``obs/alerts.py``) rides the same cadence, with or
+        without a live exporter."""
         breaker_ok = True
         if health_breaker is not None:
             breaker_ok = health_breaker.healthy()
@@ -580,6 +608,7 @@ def run_phase_parallel(
         outstanding = len(_outstanding())
         obs.gauge("scheduler.in_flight").set(len(in_flight))
         obs.gauge("scheduler.outstanding").set(outstanding)
+        alerts_mod.tick()
         if http_port is None:
             return
         if health_breaker is not None:

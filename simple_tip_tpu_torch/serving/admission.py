@@ -5,11 +5,10 @@ is loud: sheds count in ``serving.shed`` (and ``serving.shed_rows``) and
 emit a ``serving.shed`` event; breaker short-circuits count in the
 breaker's own counters; degraded admissions in ``serving.degraded_admits``.
 The per-badge estimate behind the backlog bound is the engine's live EWMA
-of badge seconds. The JAX package's cold-start prior (its execution plan
-and cost model over the obs feature store) is not ported:
-``cold_badge_estimate_s`` returns None, as the JAX package does on an
-empty store, so until a model's first badge lands only the row bound can
-shed.
+of badge seconds; until a model's first badge lands it is the cold-start
+prior: the active execution plan's ``serving.badge`` estimate, else the
+cost model's over the obs feature store (``obs/costmodel.py``), else None
+(an empty store), when only the row bound can shed.
 """
 
 import logging
@@ -40,6 +39,8 @@ class AdmissionController:
     per-badge time estimate is the engine's live EWMA, passed per call.
     """
 
+    COST_PHASE = "serving.badge"
+
     def __init__(self, knobs: ServingKnobs, breaker="env"):
         self.knobs = knobs
         if breaker == "env":
@@ -47,17 +48,33 @@ class AdmissionController:
 
             breaker = CircuitBreaker.from_env(name="serving")
         self.breaker = breaker
+        self._cold_estimate_s = None
+        self._cold_estimate_done = False
 
     # -- estimates -----------------------------------------------------------
 
     def cold_badge_estimate_s(self) -> Optional[float]:
-        """The cold-start prior for a badge's seconds: None, since the port
-        has no cost model (the JAX package's answer on an empty store)."""
-        return None
+        """Corpus-prior seconds per badge, or None (failure-safe; memoized:
+        the index is read once, not per request)."""
+        if not self._cold_estimate_done:
+            self._cold_estimate_done = True
+            try:
+                # An active plan's serving.badge estimate is the number the
+                # planner sized the study against: it outranks a fresher fit.
+                from simple_tip_tpu_torch import plan as _plan
+                from simple_tip_tpu_torch.obs.costmodel import quick_phase_estimate
+
+                est = _plan.phase_estimate(self.COST_PHASE, n_runs=1)
+                if est is None:
+                    est = quick_phase_estimate(self.COST_PHASE, n_runs=1)
+                if est and isinstance(est.get("predicted_s"), (int, float)):
+                    self._cold_estimate_s = float(est["predicted_s"])
+            except Exception:  # noqa: BLE001 — advisory, never load-bearing
+                self._cold_estimate_s = None
+        return self._cold_estimate_s
 
     def badge_estimate_s(self, live_ewma_s: Optional[float]) -> Optional[float]:
-        """Best available per-badge seconds: the live EWMA, else the
-        cold-start prior (None)."""
+        """Best available per-badge seconds: live EWMA > corpus prior > None."""
         if live_ewma_s is not None and live_ewma_s > 0:
             return live_ewma_s
         return self.cold_badge_estimate_s()

@@ -17,9 +17,10 @@ SLO telemetry (the ``obs`` registry): ``serving.request_ms`` and
 ``serving.badge_ms`` quantiles (p50/p95/p99), ``serving.badge_fill``
 histogram and ``serving.last_badge_fill`` gauge, ``serving.queue_rows``
 gauge, ``serving.badges`` / ``serving.rows`` / ``serving.shed`` /
-``serving.backend_errors`` counters. The JAX engine also ticks its SLO
-alert evaluator (``obs/alerts.py``) from the scheduler loop; the port has
-no alert evaluator, so that mount is left out.
+``serving.backend_errors`` counters. The scheduler loop is also the
+serving process's SLO alert evaluator mount (``obs/alerts.py``): one
+rate-limited ``alerts.tick()`` per wakeup, one on ``close()`` and one when
+the scheduler task crashes, as in the JAX package.
 """
 
 import asyncio
@@ -180,8 +181,10 @@ class ScoringEngine:
         if self._closed:
             return
         self._closed = True
+        from simple_tip_tpu_torch.obs import alerts as alerts_mod
         from simple_tip_tpu_torch.obs import exporter
 
+        alerts_mod.tick()  # final evaluation over the engine's last state
         if exporter.enabled():
             # Unhook /slo: a closed engine's snapshot would read as live.
             exporter.clear_provider("slo")
@@ -314,16 +317,29 @@ class ScoringEngine:
 
     async def _run(self) -> None:
         """The scheduler loop: wait for work or a deadline, assemble,
-        dispatch."""
+        dispatch.
+
+        Also the SLO evaluator's mount: one rate-limited ``alerts.tick()``
+        per wakeup (the evaluator gates itself on its cadence and on whether
+        any rules are configured). The wait is capped at one second only
+        while rules are configured.
+        """
+        from simple_tip_tpu_torch.obs import alerts as alerts_mod
+
         loop = asyncio.get_running_loop()
+        alerting = alerts_mod.enabled()
         while not self._closed:
             deadline = self.batcher.next_deadline()
             timeout = None if deadline is None else max(0.0, deadline - loop.time())
+            if alerting and (timeout is None or timeout > 1.0):
+                timeout = 1.0
             try:
                 await asyncio.wait_for(self._wake.wait(), timeout)
             except asyncio.TimeoutError:
                 pass
             self._wake.clear()
+            if alerting:
+                alerts_mod.tick()
             while not self._closed:
                 badge = self.batcher.take_ready(loop.time())
                 if badge is None:
@@ -341,8 +357,12 @@ class ScoringEngine:
         logger.error("serving scheduler task died: %r", exc)
         obs.counter("serving.scheduler_crashes").inc()
         obs.event("serving.scheduler_crash", error=repr(exc)[:200])
+        from simple_tip_tpu_torch.obs import alerts as alerts_mod
         from simple_tip_tpu_torch.obs import exporter
 
+        # The loop that would have ticked the evaluator just died: one tick
+        # now, so the crash counter lands in a sample.
+        alerts_mod.tick()
         if exporter.enabled():
             # Flip /healthz to 503: the engine can no longer serve.
             exporter.set_health("serving", ok=False, error=repr(exc)[:200])

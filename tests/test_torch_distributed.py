@@ -11,7 +11,9 @@
   runs the JAX script: host 0 takes 2 of 3 runs and host 1 one, every
   checkpoint lands, only host 0 aggregates and only after both hosts left
   their training (the event streams); ``--plan`` and ``TIP_PLAN_FILE``
-  exit 2.
+  apply a valid plan (its knobs in the environment before the parser reads
+  them, its id to the study) and exit 2 on an invalid one or one naming a
+  knob the port does not read.
 """
 
 import importlib.util
@@ -130,12 +132,42 @@ def test_full_study_two_hosts_shard_and_barrier(tmp_path):
 
 
 def test_plans_are_refused(monkeypatch, capsys, tmp_path):
+    """Invalid plans are refused with exit 2 before anything runs; a valid
+    one is applied: its assignment is in the environment before the parser
+    reads ``TIP_NUM_WORKERS``, and its id reaches the study."""
+    from simple_tip_tpu.plan import plan as jax_plan
+    from simple_tip_tpu_torch.plan import plan as plan_mod
+
     monkeypatch.setenv("TIP_ASSETS", str(tmp_path / "assets"))
-    assert full_study.main(["--plan", "plan.json", "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
-    monkeypatch.setenv(full_study.PLAN_FILE_ENV, "plan.json")
+    for var in (full_study.PLAN_FILE_ENV, "TIP_NUM_WORKERS", "TIP_CHAIN_GROUP"):
+        # set, then unset: the plan writes these into os.environ, and the
+        # monkeypatch restores each to unset after the test
+        monkeypatch.setenv(var, "")
+        monkeypatch.delenv(var)
+    studies = []
+    monkeypatch.setattr(full_study, "run_study", lambda *a, **kw: studies.append((a, kw)))
+    assert full_study.main(["--plan", str(tmp_path / "plan.json"), "--device", "cpu"]) == 2
+    assert "not a valid plan" in capsys.readouterr().err
+    unported = jax_plan.save(
+        jax_plan.build({"sa_pool": "2"}, {"by_phase": {}}, {"phases": ["x"]}, {}, {}),
+        str(tmp_path / "jax_plan.json"))
+    monkeypatch.setenv(full_study.PLAN_FILE_ENV, unported)
     assert full_study.main(["--device", "cpu"]) == 2
-    assert not (tmp_path / "assets").exists()
+    err = capsys.readouterr().err
+    assert "'sa_pool'" in err and "not ported" in err
+    assert not (tmp_path / "assets").exists() and not studies
+
+    doc = plan_mod.build({"workers": 4, "group_size": 2}, {"by_phase": {}}, {"phases": ["x"]},
+                         {}, {})
+    path = plan_mod.save(doc, str(tmp_path / "plan.json"))
+    monkeypatch.delenv(full_study.PLAN_FILE_ENV)
+    assert full_study.main(["--plan", path, "--device", "cpu", "--phases", "training",
+                            "--case-studies", "mnist", "--runs", "0"]) == 0
+    assert f"plan {doc['plan_id']}: applied group_size=2,workers=4" in capsys.readouterr().out
+    (phases, case_studies, runs, device, workers), kw = studies[0]
+    assert workers == 4 and kw == {"plan_id": doc["plan_id"]}
+    assert os.environ["TIP_CHAIN_GROUP"] == "2" and os.environ["TIP_NUM_WORKERS"] == "4"
+    assert os.environ[full_study.PLAN_FILE_ENV] == path
 
 
 def test_partial_multi_host_flags_are_refused(capsys):

@@ -330,11 +330,25 @@ def test_coordinator_handoff_promotes_standby(tmp_path, monkeypatch):
 
 
 def test_straggler_timeout_is_the_knob_or_none(tmp_path, monkeypatch):
-    """Without ``TIP_FLEET_STRAGGLER_S`` the port has no estimate (no cost
-    model: the JAX answer on an empty index), so nothing is speculated."""
+    """``TIP_FLEET_STRAGGLER_S`` when set (0 disables); without it the cost
+    model's estimate over the feature store: none on an empty index (the
+    JAX answer too), so nothing is speculated; a seeded index gives one."""
     monkeypatch.setenv("TIP_JOURNAL", str(tmp_path / "runs.jsonl"))
+    monkeypatch.setenv("TIP_OBS_INDEX", str(tmp_path / "empty_index"))
+    monkeypatch.delenv("TIP_PLAN_FILE", raising=False)
+    monkeypatch.delenv("TIP_FLEET_STRAGGLER_S", raising=False)
     ctx = FleetContext(str(tmp_path / "fleet"), "h0", "cs", "ph")
     assert ctx._straggler_timeout() is None
+    index = tmp_path / "index"
+    index.mkdir()
+    with open(index / "index.jsonl", "w") as f:
+        for i, secs in enumerate((20.0, 22.0, 24.0, 21.0)):
+            f.write(json.dumps({"schema": 1, "kind": "obs_run", "source": "s", "seq": 1,
+                                "phase": "ph", "seconds": secs, "count": 1, "run": i,
+                                "platform": "default", "degraded": False}) + "\n")
+    monkeypatch.setenv("TIP_OBS_INDEX", str(index))
+    seeded = FleetContext(str(tmp_path / "fleet"), "h3", "cs", "ph")._straggler_timeout()
+    assert seeded is not None and seeded > 4 * 20.0
     monkeypatch.setenv("TIP_FLEET_STRAGGLER_S", "12.5")
     assert FleetContext(str(tmp_path / "fleet"), "h1", "cs", "ph")._straggler_timeout() == 12.5
     monkeypatch.setenv("TIP_FLEET_STRAGGLER_S", "0")

@@ -5,7 +5,9 @@ neither of the last two), checked on the source, so lazy imports inside
 functions count too; every module imports without a card; and the study
 execution layer (the run scheduler, the fleet, the resilience modules, the
 log bridge and the device watchdog) imports neither torch nor numpy, so the
-scheduler's synthetic-phase workers start without them; and the
+scheduler's synthetic-phase workers start without them, nor does the
+observability and planning plane (``obs``' modules, ``plan``,
+``utils/flops.py``, ``utils/profiling.py``); and the
 sequence-parallel modules and the full-study command load in a fresh
 interpreter without jax or the JAX package."""
 
@@ -36,6 +38,8 @@ def _port_sources():
     yield os.path.join(ROOT, "scripts", "torch_sched_phase.py")
     yield os.path.join(ROOT, "scripts", "torch_gloo_cuda_probe.py")
     yield os.path.join(ROOT, "scripts", "torch_sp_phase.py")
+    yield os.path.join(ROOT, "scripts", "torch_profiler_probe.py")
+    yield os.path.join(ROOT, "scripts", "torch_obs_phase.py")
 
 
 def _imported_tops(path: str):
@@ -86,6 +90,26 @@ STDLIB_ONLY = (
     "simple_tip_tpu_torch.obs.logbridge",
     "simple_tip_tpu_torch.utils.device_watchdog",
     "simple_tip_tpu_torch.utils.artifacts_io",
+    # the observability and planning plane: operators run the obs CLI, the
+    # alerts and the planner on hosts with no card
+    "simple_tip_tpu_torch.obs",
+    "simple_tip_tpu_torch.obs.devicemeter",
+    "simple_tip_tpu_torch.obs.store",
+    "simple_tip_tpu_torch.obs.costmodel",
+    "simple_tip_tpu_torch.obs.slo",
+    "simple_tip_tpu_torch.obs.alerts",
+    "simple_tip_tpu_torch.obs.regress",
+    "simple_tip_tpu_torch.obs.live",
+    "simple_tip_tpu_torch.obs.splice",
+    "simple_tip_tpu_torch.obs.cli",
+    "simple_tip_tpu_torch.plan",
+    "simple_tip_tpu_torch.plan.knobs",
+    "simple_tip_tpu_torch.plan.plan",
+    "simple_tip_tpu_torch.plan.search",
+    "simple_tip_tpu_torch.plan.cli",
+    "simple_tip_tpu_torch.utils.flops",
+    "simple_tip_tpu_torch.utils.profiling",
+    "simple_tip_tpu_torch.serving.admission",
 )
 
 

@@ -235,7 +235,7 @@ def test_admission_sequences_match_jax(case):
     theirs, jax_adm = _admit_trace(jax_admission, jax_errors, jax_breaker, knob_kw, steps,
                                    breaker_kw)
     assert ours == theirs
-    # the no-estimate case: neither package has a cold-start prior here
+    # an empty feature store: neither package has a cold-start prior here
     assert adm.cold_badge_estimate_s() is None and jax_adm.cold_badge_estimate_s() is None
     assert adm.badge_estimate_s(None) is None and jax_adm.badge_estimate_s(None) is None
     assert adm.badge_estimate_s(0.25) == jax_adm.badge_estimate_s(0.25) == 0.25
