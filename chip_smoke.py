@@ -11,19 +11,19 @@ active learning end to end through the port's command line
 Needs one CUDA card; exits non-zero without one (and without the
 ``simple_tip_tpu_torch`` package beside it). Phases:
 
-1. build the six kernel sources with ``nvcc`` for sm_90a (one process per
+1. build the nine kernel sources with ``nvcc`` for sm_90a (one process per
    source, all started together; build seconds printed);
 2. data, in a temp ``TIP_DATA_DIR``: ``mnist.npz`` and ``fmnist.npz``
-   (60,000 / 10,000) and ``cifar10.npz`` (50,000 / 10,000), uint8 from
+   (60,000 / 10,000) and ``cifar10.npz`` (50,000 / **5,000**), uint8 from
    ``data/synthetic.py`` at ``--seed`` with no corruption cache (state
-   ``nominal-only``), and IMDB's five token caches at 25,000 / 25,000 /
-   25,000 (state ``real``); each study loaded through
+   ``nominal-only``), and IMDB's five token caches at 25,000 / **12,500** /
+   **12,500** (state ``real``); each study loaded through
    ``get_case_study(name).spec.loader(device=card)``, which generates the
-   MNIST-C, fmnist-C and CIFAR-10-C style sets of 10,000 images on the card
+   MNIST-C, fmnist-C and CIFAR-10-C style sets (10,000 / 10,000 / 5,000) on the card
    (seconds printed). Checks: each cache's shape, dtype and range, its
    labels equal to ``y_test`` in the generator's order (so the per-kind
    counts of ``_allocate``), two rows of each kind recomputed one at a time
-   within one uint8 level, the OOD set (20,000 / 20,000 / 20,000 / 50,000
+   within one uint8 level, the OOD set (20,000 / 20,000 / 10,000 / 25,000
    rows) the nominal and corrupted sets mixed, the state ``real`` after,
    and every array read back byte-equal after the loaders'
    ``cache_clear()``;
@@ -33,11 +33,11 @@ Needs one CUDA card; exits non-zero without one (and without the
    1e-6, the outputs within 1e-5 but for canny, spatter and snow, where the
    pixels apart are counted and capped at 0.1%;
 4. the text side: 2,000 English-like texts (``synthetic.english_like_texts``
-   over the bundled thesaurus's words) into a ``TextCorruptor`` of 4,000
-   words built on the card and one built on the CPU: distance matrices
-   byte-equal (and a 1,000-word subset's matrix computed on the CPU, and
-   200 pairs against the host ``levenshtein``), ``lev_matrix`` timed at
-   4,000 words, ``corrupt(texts, 0.5, 0)`` string-equal, and
+   over the bundled thesaurus's words) into a ``TextCorruptor`` of **2,000
+   words** built on the card and one built on the CPU:
+   distance matrices byte-equal (and a 1,000-word subset's matrix computed
+   on the CPU, and 200 pairs against the host ``levenshtein``),
+   ``lev_matrix`` timed at 2,000 words, ``corrupt(texts, 0.5, 0)`` string-equal, and
    ``build_imdb_caches`` on the texts (shapes and dtypes);
 5. training (``casestudies.base.CaseStudy.train`` in a temp ``TIP_ASSETS``
    on the registry's specs, each put back into the registry with its
@@ -67,7 +67,7 @@ Needs one CUDA card; exits non-zero without one (and without the
      min); timed per score call, and summed over the score calls the paths
      made; the training tiles the score call's two plans visit, against two
      full walks;
-   - B3 fused CIFAR-10 forward: max |dp| <= 1e-5 over 10,000 images
+   - B3 fused CIFAR-10 forward: max |dp| <= 1e-5 over 10,000 (training) images
      (library: the module forward, cuDNN), also replayed from a CUDA graph;
    - B4 flash attention: out and lse within atol 1e-5 + rtol 1e-5 on the
      q/k/v of a real IMDB forward over one prediction batch and on a ragged
@@ -94,7 +94,8 @@ Needs one CUDA card; exits non-zero without one (and without the
      |gradient| plus the f32 rounding floor), with non-zero q/k/v kernel
      gradients;
 7. per path (the loaders' data: MNIST 60,000 / 10,000 / 20,000; CIFAR-10
-   50,000 / 10,000 / 20,000; IMDB 25,000 / 25,000 / 50,000 with
+   **25,000 / 1,000 / 2,000** (its first training and nominal rows,
+   ``PATH_CUTS``; trained on all 50,000); IMDB 25,000 / 12,500 / 25,000 with
    ``dsa_badge_size=500``), ``cli.main(["--phase", "test_prio",
    "--case-study", name, "--runs", "0"])`` in-process (all 39 approaches
    with the five SA variants) on run 0's trained checkpoint with every
@@ -139,17 +140,19 @@ Needs one CUDA card; exits non-zero without one (and without the
    card, every output byte-equal, and the badge with rows 300 on as
    padding (those rows' words zero, the others the full badge's), both
    timed; (c) ``GroupChainRunner`` over MNIST runs 0 and 1 at G=2 and at
-   G=3 (a padded third member) on **the first 2,048 rows of the nominal
+   G=3 (a padded third member) on **the first 1,024 rows of the nominal
    and of the OOD set**: each member's result (VR and a top-100 AL select
    included) byte-equal to ``FusedChainRunner``'s for its run, one group
    dispatch per badge; the kernels line gives B4's launches in the fused
    IMDB run (``fused_chain_launches``);
-7c. the online scoring service (``serving/``): one ``FusedChainExecutor``
+7c. (run after 7d, once every CPU-reference child started so far has
+   ended: ``wait_children``) the online scoring service
+   (``serving/``): one ``FusedChainExecutor``
    with MNIST and IMDB registered (run 0's trained weights, the full
    training sets, both caches phase 7's, so the coverage statistics are a
    load; badge 512), each engine over it serving both as tenants. The
    capacity probe times two warm 512-row badges a family (badge ms,
-   rows/s); the full nominal sets (10,000 / 25,000 rows) are cut into
+   rows/s); the full nominal sets (10,000 / 12,500 rows) are cut into
    seeded requests of 1-700 rows, and the badges these pack into when the
    queue is deep are counted (chunks never split: a fill of ~0.7); the
    rates' base is the rows a second of each tenant, both at once, that keep
@@ -173,17 +176,20 @@ Needs one CUDA card; exits non-zero without one (and without the
 7d. the study-execution layer (``parallel/run_scheduler.py``,
    ``resilience/``, ``utils/device_watchdog.py``, ``data/real_onramp.py``):
    (a) the watchdog on the card: ``probe_local_chips`` (cards counted in a
-   subprocess) and ``ensure_responsive_backend``, seconds printed; (b) MNIST
-   run 1's in-process ``cli.main --phase test_prio`` walk (its SA fits into
-   phase 7's cache), then ``cli.main(... "--runs", "0,1", "--workers", "2")``
-   with ``TIP_WORKER_PLATFORMS=default,default``, both caches phase 7's (every
-   SA fit a load) and each worker's event stream under ``TIP_OBS_DIR``:
-   each run on exactly one worker, both card workers running at once, each
-   launching B1 and B2 (read from its flushed metrics), no run on a CPU
-   worker, every artifact byte-equal to the in-process walk's for the same
-   run and route (run 0: phase 7's), both runs journaled; the scheduler's
+   subprocess) and ``ensure_responsive_backend``, seconds printed; (b) on
+   **a cut of MNIST's data, its first 20,000 training and 2,000 nominal
+   rows** (``SCHED_DATA``; the loader generates the 2,000 corrupted rows),
+   ``cli.main(... "--runs", "0,1", "--workers", "2")``
+   with ``TIP_WORKER_PLATFORMS=default,default``, both caches of the phase's
+   own (the workers fit and store) and each worker's event stream under
+   ``TIP_OBS_DIR``, then runs 0 and 1's in-process ``cli.main --phase
+   test_prio`` walk on the same caches (every SA fit a load of a worker's
+   entry): each run on exactly one worker, both card workers running at
+   once, each launching B1 and B2 (read from its flushed metrics), no run on
+   a CPU worker, every artifact byte-equal to the in-process walk's for the
+   same run and route, both runs journaled; the scheduler's
    wall time, each run's seconds in its worker and the in-process seconds
-   (run 0 phase 7's, run 1 just measured; both fitted SA) printed; (c) the
+   printed; (c) the
    drills in a fresh ``python -c`` interpreter (``drills_main``; its
    synthetic-phase workers import no torch), on two ``default`` workers: a
    ``worker.run`` kill of one run (requeued onto a CPU worker, the JAX
@@ -225,7 +231,8 @@ Needs one CUDA card; exits non-zero without one (and without the
    aggregates only after every host's phase ended (the event streams),
    run 0's artifacts byte-equal to phase 7's, run 1's complete; each
    host's B4 launches read from its flushed metrics;
-8. per path, the slice with DSA on a small subset on the card and on the
+8. per path, the slice with DSA on a small subset (**1,000 training, 250
+   test rows**) on the card and on the
    CPU (the plain versions), compared artifact by artifact; then the four
    other SA variants fitted and scored on the card and on the CPU from the
    same traces (``SA_CHECK``: MNIST 20,000 training rows, CIFAR-10 25,000,
@@ -251,7 +258,9 @@ Needs one CUDA card; exits non-zero without one (and without the
    registry's observed share 0.5 and 1,000 selected rows, its 80 retrains
    through ``parallel/al_ensemble.py``, with two cuts: **retrains run one
    epoch** (the registry trains 15) and **the AL training base is the
-   first 12,000 of the 60,000 training rows**. Checks: the 81 pickles'
+   first 6,000 of the 60,000 training rows**, **the nominal and OOD sets
+   their first 5,000 and 10,000 rows**.
+   Checks: the 81 pickles'
    names and layout, every accuracy in [0, 1], the selections' sanity
    checks (inside ``evaluate``), each retrain's one epoch, and the random
    baseline's retrain at ``AL_RANDOM_FLOOR`` on both nominal splits. Its
@@ -314,11 +323,45 @@ events inside the span's window, B1's among them, and the device's busy
 share of that window is printed (this window's only). A ``{"obs": ...}``
 line carries the phase's record.
 
+then phase 7g, the bf16 scoring mode (``TIP_COMPUTE_DTYPE=bfloat16``;
+``run_bf16_phase``), last, on a free card: (a) B1, B3 and B4 in bf16 on
+the trained weights: B1 over MNIST's 10,000 nominal images and B3 over
+CIFAR-10's first 10,000 training images against their plain versions
+(``BF16_FUSED_MAX``, ``_MEAN``, ``_ROWS``), the float32 kernel and the bf16 module (cuDNN bf16;
+``BF16_MODE_MAX``, ``BF16_MODE_MEAN``, ``BF16_ARGMAX_SHARE`` on these
+trained weights), B4 on the bf16 q/k/v of an IMDB bf16 forward over
+one prediction batch and on a ragged [3, 37, 2, 32] x Tkv 53 (outputs within
+one bf16 ulp at their largest magnitude, their mean within
+``BF16_MEAN_ULPS`` of it, lse within 1e-5), each timed eager and from a CUDA graph beside its
+plain version and its library yardstick (the bf16 module forward; SDPA on
+bf16); (b) ``TIP_COMPUTE_DTYPE=bfloat16 cli.main --phase test_prio`` of
+run 0 in a fresh ``TIP_ASSETS`` (its SA fits and coverage statistics made
+anew under the bf16 key): MNIST at full size (B1 in bf16 and B2 must
+launch, B1 must not), CIFAR-10 on **its first 25,000 training and 1,000
+nominal rows**, phase 7's cut (``PATH_CUTS``; B3 in
+bf16 and B2 must launch, B3 must not), IMDB under ``TIP_FUSED_CHAIN=1``
+(B4 in bf16 and B2 must launch, B4 must not); every artifact's name, dtype
+and shape checked as in phase 7, APFD printed beside phase 7's float32
+APFD; (c) the caches' dtype tag: MNIST's bf16 SA entries all under the bf16
+key, none under the float32 key, phase 7's directory holding no bf16 entry
+and its float32 DSA entry not served to the bf16 key.
+
+Cuts of depth, so that phase 7g fits the command's time: **CIFAR-10's
+nominal test set is 5,000 images** (its OOD set 10,000) and **IMDB's
+12,500 texts** (OOD 25,000) in every phase that scores them; phase 7's
+and 7g's CIFAR-10 runs score its first 25,000 training and 1,000 nominal
+rows (``PATH_CUTS``); phase 7d runs on a MNIST cut (``SCHED_DATA``); AL's
+base is 6,000 rows and its test sets 5,000 / 10,000; the small slices
+1,000 / 250 rows; the text
+check's dictionary 2,000 words. Training stays at full size.
+
 Each kernel's bound is the larger of its bytes at 3.35 TB/s and its FLOPs
 at the rate of the unit that does each of its products (``UNITS``): 3xTF32
 on the tensor cores (three TF32 products at 495 TF/s) for B2, B4, B5 and
 B6, and for B1's conv2 and B3's three convs; float32 FMAs at 67 TF/s for
-B1's conv1 and the dense layers of B1 and B3. B1 and B3 also report the
+B1's conv1 and the dense layers of B1 and B3; in the bf16 mode bf16
+products on the tensor cores at 989.4 TF/s for B4 and the convs of B1 and
+B3 (conv1 of B1 and the dense layers on the FMAs). B1 and B3 also report the
 bound with every FMA at 67 TF/s (``f32_bound_ms``), the bound of earlier
 kernels that ran on the FMAs alone.
 
@@ -410,7 +453,12 @@ from simple_tip_tpu_torch.utils import artifact_check, checkpoint
 from simple_tip_tpu_torch.utils.flops import conv_net_forward_flops
 
 START = time.perf_counter()  # the command's clock, from the imports on
-SMALL_TRAIN, SMALL_TEST = 2_000, 500
+SMALL_TRAIN, SMALL_TEST = 1_000, 250
+# Phase 7's CLI run of CIFAR-10, and phase 7g's bf16 one, score its first
+# 25,000 training and 1,000 nominal rows (a cut data directory; the loader
+# generates its 1,000 corrupted rows; the model is trained on all 50,000):
+# 2,500 training rows a class, above its SA tap's 2,304 features.
+PATH_CUTS = {"cifar10": (25_000, 1_000)}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 # The unit that does each kernel's products, and its rate for them: float32
 # FMAs outside the tensor cores (67 TF/s), or 3xTF32 on the tensor cores
@@ -418,6 +466,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 UNITS = {
     "f32": (67e12, "float32 FMAs on the CUDA cores, 67 TF/s"),
     "3xtf32": (495e12 / 3, "3xTF32 on the tensor cores, 3 TF32 products at 495 TF/s"),
+    "bf16": (989.4e12, "bfloat16 products on the tensor cores, 989.4 TF/s (dense)"),
 }
 UNCERTAINTIES = ("softmax", "pcs", "softmax_entropy", "deep_gini")
 NC_METRICS = (
@@ -474,14 +523,14 @@ PATHS = {
         train_batch=128, runs=[0, 1], classes=10, train_kernels=(),
     ),
     "cifar10": dict(
-        model=Cifar10ConvNet, sizes=(50_000, 10_000, 20_000), nc=[0, 1, 2, 3], sa=[3],
+        model=Cifar10ConvNet, sizes=(50_000, 5_000, 10_000), nc=[0, 1, 2, 3], sa=[3],
         dsa_badge=None, batch=32,
         neurons=30 * 30 * 32 + 15 * 15 * 32 + 13 * 13 * 64 + 6 * 6 * 64,
         kernels=("fused_cifar10_forward", "dsa_nearest"), chain_kernels=("dsa_nearest",),
         train_batch=32, runs=[0], classes=10, train_kernels=(),
     ),
     "imdb": dict(
-        model=ImdbTransformer, sizes=(25_000, 25_000, 50_000), nc=[3, 5], sa=[5],
+        model=ImdbTransformer, sizes=(25_000, 12_500, 25_000), nc=[3, 5], sa=[5],
         dsa_badge=500, batch=600, neurons=32 + 20,
         kernels=("flash_attention_fwd", "dsa_nearest"),
         chain_kernels=("flash_attention_fwd", "dsa_nearest"),
@@ -500,7 +549,8 @@ ACCURACY_FLOOR = {"mnist": 0.85, "cifar10": 0.85, "imdb": 0.85}
 # must reach AL_RANDOM_FLOOR on both nominal splits (its 92 steps on the
 # cut base; the full-set epoch reaches ACCURACY_FLOOR).
 AL_FAMILY = "mnist"
-AL_TRAIN_ROWS = 12_000
+AL_TRAIN_ROWS = 6_000
+AL_TEST_ROWS = (5_000, 10_000)
 AL_OBSERVED_SHARE = 0.5
 AL_NUM_SELECTED = 1000
 AL_RANDOM_FLOOR = 0.7
@@ -535,8 +585,8 @@ ACTIVATION_RTOL = 1e-5
 # runs.
 IMAGE_FIXTURES = {"mnist": (60_000, 10_000, (28, 28, 1), 0),
                   "fmnist": (60_000, 10_000, (28, 28, 1), 1),
-                  "cifar10": (50_000, 10_000, (32, 32, 3), 0)}
-IMDB_FIXTURE = (25_000, 25_000, 0)
+                  "cifar10": (50_000, 5_000, (32, 32, 3), 0)}
+IMDB_FIXTURE = (25_000, 12_500, 0)
 CORRUPTION_SEEDS = {"mnist": 11, "fmnist": 22, "cifar10": 33}
 # Rows per kind recomputed one at a time against the generated cache (within
 # one uint8 level, or CORRUPTOR_ATOL for fmnist's floats).
@@ -554,7 +604,7 @@ THRESHOLDED_KINDS = ("canny_edges", "spatter", "snow")
 # The text check: English-like texts, the corruptor's dictionary, and the
 # words of the card-against-CPU check of the distance matrix.
 TEXTS = 2_000
-DICTIONARY = 4_000
+DICTIONARY = 2_000
 LEV_CHECK_WORDS = 1_000
 # The fused and grouped chain (``TIP_FUSED_CHAIN``, ``TIP_CHAIN_GROUP``):
 # the paths run through the command line with the chain on; the tolerances
@@ -570,7 +620,7 @@ CHAIN_TIE_GAP = 1e-5
 CHAIN_PAD_VALID = 300
 CHAIN_REPS = 20
 CHAIN_GROUP_FAMILY = "mnist"
-CHAIN_GROUP_ROWS = 2_048
+CHAIN_GROUP_ROWS = 1_024
 CHAIN_GROUP_SIZES = (2, 3)
 CHAIN_SELECT_K = 100
 # The online scoring service (phase 7c): the families served as two tenants
@@ -599,6 +649,10 @@ SERVE_LATE_START_S = 0.1
 # IMDB corpus (train, test texts).
 SCHED_FAMILY = "mnist"
 SCHED_RUNS = (0, 1)
+# Phase 7d's runs score a cut of MNIST's data: its first 20,000 training and
+# 2,000 nominal rows (the loader generates 2,000 corrupted rows): 2,000
+# training rows a class, above the SA tap's 1,600 features.
+SCHED_DATA = (20_000, 2_000)
 SCHED_WORKERS = 2
 SCHED_WEDGE_TIMEOUT_S = 3.0
 SCHED_DRILL_RUN_TIMEOUT_S = 120.0
@@ -644,9 +698,61 @@ OBS_COST_BASIS = {
     "fused_forward": "FLOPs: the forward's matmuls and convs; bytes: the input read and the "
                      "probabilities written once",
 }
+# The bf16 scoring mode (phase 7g). Its kernels round activations to bf16
+# where the TPU kernels do, so a float32 sum taken in another order than the
+# plain version's (and the tensor cores' own accumulation, which rounds
+# toward zero) can flip one rounding. On trained weights, whose softmax is
+# sharp, one flipped activation moves a probability by up to ~2^-8 of its
+# contribution to a logit: 2.06e-3 at most over 10,000 CIFAR-10 images, 11
+# images with a |dp| above 1e-4, a mean |dp| of 1.2e-7, the same classes
+# predicted, where the plain version on the card and on the CPU agree within
+# 6.7e-6 (scripts/torch_bf16_trained.py; on initialised weights the kernels
+# are within 1.1e-4, held at 5e-4 in tests/test_torch_kernels_cuda.py). So
+# B1 and B3 in bf16 are held to their plain versions at BF16_FUSED_MAX at
+# most, BF16_FUSED_MEAN on average, at most BF16_FUSED_ROWS of the images
+# with a |dp| above 1e-4, and predicted classes apart on at most
+# BF16_ARGMAX_SHARE. Against the float32 kernel and the bf16 module (whose
+# convolutions round their outputs and add their biases in bf16) the bf16
+# mode itself differs: on initialised weights within 5e-3, the JAX package's
+# gate (tests/test_fused_forward.py:38-44, held in the cuda-marked tests);
+# on these trained weights each is held to BF16_MODE_MAX at most,
+# BF16_MODE_MEAN on average and BF16_ARGMAX_SHARE. B4's p is rounded to bf16
+# too: its outputs are held within one bf16 ulp at the output's largest
+# magnitude, their mean |difference| within BF16_MEAN_ULPS of that ulp (a
+# flipped p moves every output of its query row, so a count of outputs
+# apart is no measure), its float32 lse within 1e-5 + 1e-5 |lse|. The end-to-end runs: MNIST run 0 at full size,
+# CIFAR-10 run 0 on a cut of its data (PATH_CUTS: training, nominal rows;
+# B3 in bf16 is otherwise on no path), IMDB run 0 under the fused
+# chain; each in a fresh TIP_ASSETS, with the kernels each must launch and
+# the float32 forward kernels each must not. CIFAR-10's cut is phase 7's
+# (PATH_CUTS), so the two runs' APFD compare on the same rows.
+BF16_FUSED_MAX = 1e-2
+BF16_FUSED_MEAN = 1e-6
+BF16_FUSED_ROWS = 5e-3
+BF16_MODE_MAX = 0.05
+BF16_MODE_MEAN = 1e-3
+BF16_ARGMAX_SHARE = 0.01
+BF16_MEAN_ULPS = 1 / 64
+BF16_PATHS = {
+    "mnist": dict(fused_chain=False, kernels=("fused_mnist_forward_bf16", "dsa_nearest"),
+                  not_launched=("fused_mnist_forward",)),
+    "cifar10": dict(fused_chain=False, kernels=("fused_cifar10_forward_bf16", "dsa_nearest"),
+                    not_launched=("fused_cifar10_forward",)),
+    "imdb": dict(fused_chain=True, kernels=("flash_attention_fwd_bf16", "dsa_nearest"),
+                 not_launched=("flash_attention_fwd",)),
+}
 # Each kernel wrapper's launch counter (the names the workers' metrics use).
 COUNTERS = {name: (sys.modules[module], attr)
             for name, (module, attr) in LAUNCH_COUNTERS.items()}
+
+
+TIMELINE = {}
+
+
+def timeline(phase: str) -> None:
+    """Print and keep the command's seconds at the start of ``phase``."""
+    TIMELINE[phase] = round(time.perf_counter() - START, 1)
+    print(json.dumps({"timeline": phase, "t_s": TIMELINE[phase]}), flush=True)
 
 
 def zero_counters() -> None:
@@ -1110,7 +1216,7 @@ def _fused_record(name: str, kernel, plain, net, fused, x, work, replaces: str) 
     b = x.shape[0]
     # images read and probabilities written once; the plain version's weights once
     nbytes = b * (x[0].numel() + 10) * 4 + sum(
-        t.numel() * 4 for k, t in fused.items() if not k.endswith("_tc"))
+        t.numel() * 4 for k, t in fused.items() if not k.endswith(("_tc", "_bf")))
     bound, by = mixed_bound_ms(work, nbytes)
     f32_bound, f32_by = bound_ms(sum(flops for flops, _ in work), nbytes)
     return {
@@ -1118,7 +1224,7 @@ def _fused_record(name: str, kernel, plain, net, fused, x, work, replaces: str) 
         "route": "cuda",
         "source": f"simple_tip_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
-        "timed": f"one launch over the {b} nominal test images",
+        "timed": f"one launch over {b} images",
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1147,7 +1253,8 @@ def check_fused_forward(params, x_test: np.ndarray, dev) -> dict:
 
 
 def check_cifar10_forward(params, x_test: np.ndarray, dev) -> dict:
-    """B3 against its plain version on the nominal test set."""
+    """B3 against its plain version on 10,000 images (the first training
+    images: the nominal test set is cut to 5,000)."""
     fused = {k: v.to(dev) for k, v in params["fused"].items()}
     x = torch.from_numpy(x_test).to(dev)
     b = x.shape[0]
@@ -2056,6 +2163,17 @@ class MlsaFullWidth:
         return report
 
 
+def wait_children() -> float:
+    """Wait until no child process started so far runs (each within
+    ``CPU_REF_TIMEOUT_S``; their results are read later); the seconds
+    waited."""
+    t0 = time.perf_counter()
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.wait(timeout=CPU_REF_TIMEOUT_S)
+    return time.perf_counter() - t0
+
+
 class CpuReference:
     """The CPU side of a card-against-CPU check, computed in a child process
     (``--cpu-ref PATH`` on ``threads`` threads) beside the card phases:
@@ -2129,29 +2247,54 @@ def mlsa_selection_moved(card, cpu, order_card, order_cpu) -> dict:
             "sc_cam_first_k": moved_rows(order_card[:k], order_cpu[:k])}
 
 
+def path_cut(family: str, data_dir: str, root: str) -> str:
+    """The data directory of ``family``'s ``PATH_CUTS`` cut under ``root``:
+    its archive's first training and nominal rows (no corruption cache: the
+    loader makes it), written on the first call."""
+    folder = os.path.join(root, f"{family}_cut")
+    if not os.path.isdir(folder):
+        os.makedirs(folder)
+        n_train, n_test = PATH_CUTS[family]
+        with np.load(os.path.join(data_dir, f"{family}.npz")) as full:
+            np.savez(os.path.join(folder, f"{family}.npz"), x_train=full["x_train"][:n_train],
+                     y_train=full["y_train"][:n_train], x_test=full["x_test"][:n_test],
+                     y_test=full["y_test"][:n_test])
+    return folder
+
+
 def run_path(family: str, params, data, dev, root: str) -> dict:
-    """The path at full size through ``cli.main --phase test_prio`` on the
+    """The path at full size (CIFAR-10's on its ``PATH_CUTS`` cut) through
+    ``cli.main --phase test_prio`` on the
     registry's study (run 0's checkpoint in ``root``/train) with the
     counters read around it, its SA variants' times and APFD table, then
     the small card-against-CPU comparisons (the slice with DSA, then the
     four other SA variants)."""
     path_root = os.path.join(root, "train")
     os.environ["TIP_ASSETS"] = path_root
-    zero_counters()
-    t0 = time.perf_counter()
-    with CacheRecorder() as recorder:
-        [(phases, chosen_k)] = run_cli("--phase", "test_prio", "--case-study", family,
-                                       "--runs", "0", *device_args(dev)).values()
-    seconds = time.perf_counter() - t0
+    env, rows = {}, {"nominal": len(data[1][1]), "ood": len(data[2][1])}
+    sizes = PATHS[family]["sizes"]
+    if family in PATH_CUTS:
+        env["TIP_DATA_DIR"] = path_cut(family, os.environ["TIP_DATA_DIR"], root)
+        n_train, n_test = PATH_CUTS[family]
+        rows, sizes = {"nominal": n_test, "ood": 2 * n_test}, (n_train, n_test, 2 * n_test)
+    clear_loaders()
+    with patched_env(env):
+        zero_counters()
+        t0 = time.perf_counter()
+        with CacheRecorder() as recorder:
+            [(phases, chosen_k)] = run_cli("--phase", "test_prio", "--case-study", family,
+                                           "--runs", "0", *device_args(dev)).values()
+        seconds = time.perf_counter() - t0
+    clear_loaders()
     launches = read_counters()
     caches = check_cache_entries(family, recorder)
-    art, records = read_artifacts(family, {"nominal": len(data[1][1]), "ood": len(data[2][1])})
+    art, records = read_artifacts(family, rows)
     for name in PATHS[family]["kernels"]:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the {family} path")
     apfd = apfd_report(art)
     sa = sa_report(art, records, chosen_k)
-    print(json.dumps({"path": family, "sizes": PATHS[family]["sizes"], "slice_s": seconds,
+    print(json.dumps({"path": family, "sizes": sizes, "slice_s": seconds,
                       "phases_s": phases, "launches": launches, "apfd": apfd}))
     print(json.dumps({"path": family, "time_records": records}))
     print(json.dumps({"path": family, "sa": sa}))
@@ -2173,7 +2316,7 @@ def run_path(family: str, params, data, dev, root: str) -> dict:
     flips = {k: v for k, v in small_report.items() if v}
     print(json.dumps({"path": family, "small_card_vs_cpu_flips": flips}))
     sa_small = compare_sa_small(family, params, data, dev, root)
-    return {"sizes": PATHS[family]["sizes"],
+    return {"sizes": sizes,
             "slice_s": seconds, "phases_s": phases,
             "launches": launches, "apfd": apfd, "time_records": records, "sa": sa,
             "caches": caches, "apfd_table": table, "small": small_report, "sa_small": sa_small}
@@ -3272,17 +3415,28 @@ def run_onramp(folder: str, data_dir: str, seed: int, dev) -> dict:
             "imdb_changed_tokens": int((corrupted != imdb_test).sum()), "faults": faults}
 
 
-def run_sched_phase(data_dir: str, dev, root: str, seed: int, inproc_run0_s: float) -> dict:
+def write_sched_data(data_dir: str, folder: str) -> None:
+    """``mnist.npz`` of the first ``SCHED_DATA`` training and nominal rows of
+    ``data_dir``'s archive (no corruption cache: the loader makes it)."""
+    os.makedirs(folder, exist_ok=True)
+    n_train, n_test = SCHED_DATA
+    with np.load(os.path.join(data_dir, "mnist.npz")) as full:
+        np.savez(os.path.join(folder, "mnist.npz"), x_train=full["x_train"][:n_train],
+                 y_train=full["y_train"][:n_train], x_test=full["x_test"][:n_test],
+                 y_test=full["y_test"][:n_test])
+
+
+def run_sched_phase(data_dir: str, dev, root: str, seed: int) -> dict:
     """Phase 7d. (1) The watchdog on the card: ``probe_local_chips`` and
-    ``ensure_responsive_backend``. (2) MNIST run 1's in-process
-    ``cli.main --phase test_prio`` walk (its fits into phase 7's caches), then
+    ``ensure_responsive_backend``. (2) On the ``SCHED_DATA`` cut of MNIST,
     ``cli.main(... "--runs", "0,1", "--workers", "2")`` with
-    ``TIP_WORKER_PLATFORMS=default,default`` on phase 7's caches (every SA
-    fit a load), each worker's stream under ``TIP_OBS_DIR``: each run on one
-    card worker, both at once, each worker launching B1 and B2, every
-    artifact byte-equal to the in-process walk's (run 0: phase 7's), both
-    runs journaled. (3) The drills in a fresh interpreter (``drills_main``).
-    (4) The onramp (``run_onramp``)."""
+    ``TIP_WORKER_PLATFORMS=default,default`` on caches of the phase's own
+    (the workers fit and store), each worker's stream under ``TIP_OBS_DIR``,
+    then runs 0 and 1's in-process ``cli.main --phase test_prio`` walk on
+    those caches (every SA fit a load): each run on one card worker, both at
+    once, each worker launching B1 and B2, every artifact byte-equal to the
+    in-process walk's, both runs journaled. (3) The drills in a fresh
+    interpreter (``drills_main``). (4) The onramp (``run_onramp``)."""
     from simple_tip_tpu_torch.resilience import RunJournal
     from simple_tip_tpu_torch.utils import device_watchdog
 
@@ -3303,14 +3457,14 @@ def run_sched_phase(data_dir: str, dev, root: str, seed: int, inproc_run0_s: flo
     inproc, sched = os.path.join(root, "sched_inproc"), os.path.join(root, "sched")
     for folder in (inproc, sched):
         shutil.copytree(os.path.join(src, "models", family), os.path.join(folder, "models", family))
-    env = {"TIP_SA_CACHE_DIR": os.path.join(src, "sa_fit_cache"),
-           "TIP_COV_STATS_CACHE_DIR": os.path.join(src, "coverage_stats_cache"),
+    cut_dir = os.path.join(root, "sched_data")
+    write_sched_data(data_dir, cut_dir)
+    env = {"TIP_SA_CACHE_DIR": os.path.join(root, "sched_caches", "sa_fit_cache"),
+           "TIP_COV_STATS_CACHE_DIR": os.path.join(root, "sched_caches", "coverage_stats_cache"),
+           "TIP_DATA_DIR": cut_dir, "TIP_COMPUTE_DTYPE": None,
            "TIP_FUSED_CHAIN": None, "TIP_CHAIN_GROUP": None, "TIP_FAULT_PLAN": None}
     runs = ",".join(str(r) for r in SCHED_RUNS)
-    with patched_env({**env, "TIP_ASSETS": inproc}):
-        t0 = time.perf_counter()
-        run_cli("--phase", "test_prio", "--case-study", family, "--runs", "1", *device_args(dev))
-        inproc_run1_s = time.perf_counter() - t0
+    clear_loaders()
     if dev.type == "cuda":
         torch.cuda.empty_cache()  # the workers share the card with this process
     obs_dir = os.path.join(root, "sched_obs")
@@ -3322,12 +3476,26 @@ def run_sched_phase(data_dir: str, dev, root: str, seed: int, inproc_run0_s: flo
                 "--workers", str(SCHED_WORKERS), *device_args(dev))
         sched_s = time.perf_counter() - t0
         obs.reset()
+    # the in-process reference walks, after the workers: their SA fits and
+    # coverage statistics are the workers' entries, loaded
+    with patched_env({**env, "TIP_ASSETS": inproc}):
+        inproc_s, outcomes = {}, {}
+        for run in SCHED_RUNS:
+            t0 = time.perf_counter()
+            with CacheRecorder() as recorder:
+                run_cli("--phase", "test_prio", "--case-study", family, "--runs", str(run),
+                        *device_args(dev))
+            inproc_s[run] = time.perf_counter() - t0
+            outcomes[run] = recorder.sa_outcomes
+    clear_loaders()
+    if any(o != "hit" for per_run in outcomes.values() for d in per_run for o in d.values()):
+        faults.append(f"the in-process walks did not load the workers' SA fits: {outcomes}")
     records = read_streams(obs_dir)
     workers = worker_records(records)
     kernels = PATHS[family]["kernels"] if dev.type == "cuda" else ()
     faults += sched_faults(workers, SCHED_RUNS, kernels,
                            platform="default" if dev.type == "cuda" else "cpu")
-    faults += artifact_faults(family, sched, {0: src, 1: inproc})
+    faults += artifact_faults(family, sched, {run: inproc for run in SCHED_RUNS})
     journaled = RunJournal(os.path.join(sched, "journal", "runs.jsonl"), family,
                            "test_prio").completed()
     if journaled != set(SCHED_RUNS):
@@ -3335,7 +3503,8 @@ def run_sched_phase(data_dir: str, dev, root: str, seed: int, inproc_run0_s: flo
     worker_s = {run: d for w in workers.values() for run, (_, d) in w["runs"].items()}
     scheduler = {"sched_phase": family, "runs": list(SCHED_RUNS), "workers": SCHED_WORKERS,
                  "scheduler_s": sched_s, "worker_run_s": worker_s,
-                 "in_process_s": {0: inproc_run0_s, 1: inproc_run1_s},
+                 "data": {"training": SCHED_DATA[0], "nominal": SCHED_DATA[1]},
+                 "in_process_s": inproc_s,
                  "launches": {pid: w["launches"] for pid, w in workers.items() if w["runs"]},
                  "platforms": {pid: w["platform"] for pid, w in workers.items()}}
     print(json.dumps(scheduler))
@@ -4050,12 +4219,264 @@ def run_obs_phase(params, data, dev, root: str, smi: str) -> dict:
     return record
 
 
+# -- the bf16 scoring mode (phase 7g of the docstring) ---------------------------------
+
+
+def _bf16_net(family: str, params, dev):
+    net = PATHS[family]["model"](compute_dtype="bfloat16").to(dev).eval()
+    net.load_state_dict(params["module"])
+    return net
+
+
+def check_fused_forward_bf16(family: str, params, x_np: np.ndarray, dev) -> dict:
+    """B1 or B3 in bf16 on ``x_np`` against its plain version (within
+    BF16_FUSED_MAX, BF16_FUSED_MEAN, BF16_FUSED_ROWS, BF16_ARGMAX_SHARE),
+    the float32 kernel and the bf16 module (cuDNN bf16;
+    within BF16_MODE_MAX, BF16_MODE_MEAN and BF16_ARGMAX_SHARE); its times
+    eager and from a CUDA graph, the plain version's and the bf16 module
+    forward's (the library yardstick)."""
+    if family == "mnist":
+        name, kernel, plain, f32 = ("fused_mnist_forward_bf16", fused_forward.fused_mnist_probs_bf16,
+                                    fused_forward.fused_mnist_probs_bf16_plain,
+                                    fused_forward.fused_mnist_probs)
+        replaces, bf_ops = "simple_tip_tpu/ops/fused_forward.py:60", ("w2_bf",)
+    else:
+        name, kernel, plain, f32 = ("fused_cifar10_forward_bf16",
+                                    fused_forward.fused_cifar10_probs_bf16,
+                                    fused_forward.fused_cifar10_probs_bf16_plain,
+                                    fused_forward.fused_cifar10_probs)
+        replaces, bf_ops = "simple_tip_tpu/ops/fused_forward.py:153", ("w1_bf", "w2_bf", "w3_bf")
+    fused = {k: v.to(dev) for k, v in params["fused"].items()}
+    net = _bf16_net(family, params, dev)
+    x = torch.from_numpy(x_np).to(dev)
+    with torch.no_grad():
+        got = kernel(fused, x)
+        want = plain(fused, x)
+        module = net(x)[0]
+        f32_probs = f32(fused, x)
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    err, mean = float(d.max()), float(d.mean())
+    rows = int((d > 1e-4).any(dim=1).sum())
+    argmax = int((got.argmax(1) != want.argmax(1)).sum())
+    mode = {}
+    for other, probs in (("bf16_module", module), ("f32_kernel", f32_probs)):
+        d = (got - probs).abs()
+        mode[other] = {"max": float(d.max()), "mean": float(d.mean()),
+                       "argmax_apart": int((got.argmax(1) != probs.argmax(1)).sum())}
+    b = got.shape[0]
+    if not (err <= BF16_FUSED_MAX and mean <= BF16_FUSED_MEAN and rows <= BF16_FUSED_ROWS * b
+            and argmax <= BF16_ARGMAX_SHARE * b) or any(
+            m["max"] > BF16_MODE_MAX or m["mean"] > BF16_MODE_MEAN
+            or m["argmax_apart"] > BF16_ARGMAX_SHARE * b for m in mode.values()):
+        raise AssertionError(f"{name}: from its plain version max {err}, mean {mean}, {rows} "
+                             f"images above 1e-4, {argmax} classes apart; against the bf16 "
+                             f"module and the float32 kernel {mode}")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: kernel(fused, x), 20)
+        device = graph_ms(lambda: kernel(fused, x), 20)
+        plain_ms = cuda_ms(lambda: plain(fused, x), 3)
+        library_ms = cuda_ms(lambda: net(x), 20)
+    b = x.shape[0]
+    if family == "mnist":  # conv1 at all 26x26 positions, conv2 at the 10x10 the pool keeps
+        work = [(b * 2 * 26 * 26 * 32 * 9, "f32"), (b * 2 * 10 * 10 * 64 * 288, "bf16"),
+                (b * 2 * 1600 * 10, "f32")]
+        weights = ("w1", "b1", "b2", "wd", "bd")
+    else:  # the convs at the positions the pools keep: 30x30, 12x12, 4x4
+        work = [(b * 2 * (30 * 30 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576), "bf16"),
+                (b * 2 * (1024 * 64 + 64 * 10), "f32")]
+        weights = ("b1", "b2", "b3", "wd1", "bd1", "wd2", "bd2")
+    # images read and probabilities written once, the weights the kernel reads once
+    nbytes = b * (x[0].numel() + 10) * 4 + sum(
+        fused[k].numel() * fused[k].element_size() for k in (*weights, *bf_ops))
+    bound, by = mixed_bound_ms(work, nbytes)
+    return {
+        "name": name, "route": "cuda", "source": f"simple_tip_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "timed": f"one launch over {b} images (bf16 scoring mode)",
+        "max_abs_err": err, "mean_abs_err": mean, "images_above_1e-4": rows,
+        "classes_apart": argmax, "vs_bf16_module": mode["bf16_module"],
+        "vs_f32_kernel": mode["f32_kernel"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "bound_unit": "convolutions in bf16 on the tensor cores (989.4 TF/s); conv1 (B1) and "
+                      "the dense layers on float32 FMAs, 67 TF/s",
+        "library_ms": library_ms, "library": "the bf16 module forward (cuDNN bf16)",
+        "device_ms": device,
+    }
+
+
+def _bf16_close(got, want, lse, want_lse, what: str) -> tuple:
+    """(max |out - want|, outputs apart); raises unless every output is
+    within one bf16 ulp at the largest |want|, their mean |difference|
+    within BF16_MEAN_ULPS of that ulp, and lse within 1e-5 + 1e-5 |lse|."""
+    diff = (got.float() - want.float()).abs()
+    ulp = 2.0 ** (float(torch.floor(torch.log2(want.float().abs().max()))) - 7)
+    apart = int((diff > 0).sum())
+    lse_excess = float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max())
+    if float(diff.max()) > ulp or float(diff.mean()) > BF16_MEAN_ULPS * ulp or \
+            lse_excess > 1e-5:
+        raise AssertionError(f"bf16 flash attention {what}: max |d| {float(diff.max())} "
+                             f"(ulp {ulp}), mean {float(diff.mean())}, {apart} of "
+                             f"{diff.numel()} apart, lse {lse_excess}")
+    return float(diff.max()), apart
+
+
+def check_flash_attention_bf16(params, tokens: np.ndarray, dev, seed: int) -> dict:
+    """B4 in bf16 against its plain version: the bf16 q/k/v of a real IMDB
+    bf16 forward over one prediction batch (timed), and a ragged shape."""
+    net = _bf16_net("imdb", params, dev)
+    attn = net.block.attention
+    with torch.no_grad():
+        emb = net.embedding(to_device(tokens[:PREDICT_BATCH], dev))
+        b, t, _ = emb.shape
+        q, k, v = (F.linear(emb, p.weight.bfloat16()).add(p.bias.bfloat16()).reshape(
+            b, t, attn.num_heads, attn.head_dim) for p in (attn.query, attn.key, attn.value))
+    rng = np.random.default_rng(seed)
+    ragged = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).bfloat16()
+              for shape in ((3, 37, 2, 32), (3, 53, 2, 32), (3, 53, 2, 32))]
+    err, apart = 0.0, {}
+    for name, (qq, kk, vv) in (("imdb", (q, k, v)), ("ragged", ragged)):
+        out, lse = flash_attention.flash_attention_fwd(qq, kk, vv)
+        want_out, want_lse = flash_attention.flash_attention_bf16_plain(qq, kk, vv)
+        torch.cuda.synchronize()
+        e, apart[name] = _bf16_close(out, want_out, lse, want_lse, name)
+        err = max(err, e)
+    h, dh = attn.num_heads, attn.head_dim
+    qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
+
+    def kernel():
+        return flash_attention.flash_attention_fwd(q, k, v)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh)
+
+    with torch.no_grad():
+        ms, device = cuda_ms(kernel, 20), graph_ms(kernel, 20)
+        plain_ms = cuda_ms(lambda: flash_attention.flash_attention_bf16_plain(q, k, v), 5)
+        library_ms = cuda_ms(library, 20)
+    # two products of 2*dh FLOPs per (query, key) pair at the bf16 rate; q, k, v
+    # read and out written once in bf16, lse written once in float32
+    bound, by = bound_ms(4 * b * h * t * t * dh, 2 * 4 * b * t * h * dh + 4 * b * h * t, "bf16")
+    print(f"flash_attention_fwd_bf16 timed at q/k/v [{b}, {t}, {h}, {dh}]")
+    return {
+        "name": "flash_attention_fwd_bf16", "route": "cuda",
+        "source": "simple_tip_tpu_torch/csrc/flash_attention_fwd_bf16.cu",
+        "replaces": "simple_tip_tpu/ops/flash_attention.py:58",
+        "timed": f"one launch at one prediction batch, bf16 q/k/v [{b}, {t}, {h}, {dh}]; "
+                 "library: scaled_dot_product_attention on bf16",
+        "max_abs_err": err, "outputs_apart": apart,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "bound_unit": UNITS["bf16"][1], "library_ms": library_ms, "device_ms": device,
+    }
+
+
+def bf16_cache_faults(family: str, tree, x_train: np.ndarray, bf16_root: str,
+                      f32_root: str, dev) -> list:
+    """Phase 7g (c): the bf16 run's SA entries are all under the bf16 key,
+    none under the float32 key phase 7 wrote, and phase 7's directory holds
+    no bf16 entry (an f32 fit never serves the bf16 run, nor the reverse)."""
+    sa = PATHS[family]["sa"]
+    fp32 = sa_prep.train_fingerprint(tree, x_train, sa)[:16]
+    fp16 = sa_prep.train_fingerprint(tree, x_train, sa, "bfloat16")[:16]
+    faults = [] if fp32 != fp16 else ["the bf16 and float32 SA keys are equal"]
+    bf16_entries = os.listdir(os.path.join(bf16_root, "sa_fit_cache"))
+    f32_entries = os.listdir(os.path.join(f32_root, "sa_fit_cache"))
+    mine = [e for e in bf16_entries if e.startswith(f"{family}_0_")]
+    if len(mine) != len(SA_NAMES) or any(fp16 not in e for e in mine):
+        faults.append(f"bf16 SA entries {sorted(mine)}, want {len(SA_NAMES)} under {fp16}")
+    if not any(fp32 in e for e in f32_entries):
+        faults.append(f"phase 7 holds no float32 entry under {fp32}")
+    if any(fp32 in e for e in bf16_entries) or any(fp16 in e for e in f32_entries):
+        faults.append("a bf16 and a float32 SA entry share a directory's key")
+    with patched_env({"TIP_SA_CACHE_DIR": os.path.join(f32_root, "sa_fit_cache")}):
+        cache = sa_prep.SAFitCache.from_env(family, 0, tree, x_train, sa, dev,
+                                            compute_dtype="bfloat16")
+        if cache.load("dsa") is not None:
+            faults.append("phase 7's float32 DSA entry served the bf16 key")
+    return faults
+
+
+def run_bf16_path(family: str, root: str, data, dev, f32_apfd: dict,
+                  data_dir: str = None) -> dict:
+    """``TIP_COMPUTE_DTYPE=bfloat16 cli.main --phase test_prio`` for run 0
+    in a fresh TIP_ASSETS holding run 0's checkpoint, the counters set to
+    0 just before and read just after; every artifact checked for name,
+    dtype and shape; APFD beside phase 7's float32 APFD."""
+    cfg = BF16_PATHS[family]
+    assets = os.path.join(root, f"bf16_{family}")
+    shutil.copytree(os.path.join(root, "train", "models", family),
+                    os.path.join(assets, "models", family))
+    env = {"TIP_ASSETS": assets, "TIP_COMPUTE_DTYPE": "bfloat16", "TIP_SA_CACHE_DIR": None,
+           "TIP_COV_STATS_CACHE_DIR": None, "TIP_CHAIN_GROUP": None,
+           "TIP_FUSED_CHAIN": "1" if cfg["fused_chain"] else None}
+    if data_dir:
+        env["TIP_DATA_DIR"] = data_dir
+        clear_loaders()
+    with patched_env(env):
+        zero_counters()
+        t0 = time.perf_counter()
+        [(phases, _)] = run_cli("--phase", "test_prio", "--case-study", family, "--runs", "0",
+                                *device_args(dev)).values()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+        art, _ = read_artifacts(family, {"nominal": len(data[1][1]), "ood": len(data[2][1])})
+    if data_dir:
+        clear_loaders()
+    faults = []
+    if dev.type == "cuda":  # the CPU runs the plain versions: no kernel launches there
+        faults += [f"{name} was not launched" for name in cfg["kernels"] if launches[name] <= 0]
+        faults += [f"the float32 {name} was launched {launches[name]} times"
+                   for name in cfg["not_launched"] if launches[name]]
+    apfd = apfd_report(art)
+    record = {"bf16_path": family, "fused_chain": cfg["fused_chain"], "slice_s": seconds,
+              "phases_s": phases, "launches": launches, "apfd": apfd, "f32_apfd": f32_apfd,
+              "rows": {"nominal": len(data[1][1]), "ood": len(data[2][1])}}
+    print(json.dumps(record))
+    if faults:
+        raise AssertionError(f"bf16 {family}: " + "; ".join(faults))
+    return {**record, "assets": assets}
+
+
+def run_bf16_phase(params: dict, trees: dict, data: dict, dev, root: str, paths: dict) -> dict:
+    """Phase 7g: (a) B1, B3 and B4 in bf16 on the trained weights against
+    their plain versions, timed; (b) the bf16 scoring mode end to end:
+    MNIST run 0 at full size, CIFAR-10 run 0 on its PATH_CUTS cut (phase 7's),
+    IMDB run 0 under the fused chain; (c) the caches' dtype tag."""
+    t_phase = time.perf_counter()
+    x_cifar = data["cifar10"][0][0][:10_000]
+    kernels = [check_fused_forward_bf16("mnist", params["mnist"], data["mnist"][1][0], dev),
+               check_fused_forward_bf16("cifar10", params["cifar10"], x_cifar, dev),
+               check_flash_attention_bf16(params["imdb"], data["imdb"][1][0], dev, 0)]
+    runs = {"mnist": run_bf16_path("mnist", root, data["mnist"], dev, paths["mnist"]["apfd"]),
+            "imdb": run_bf16_path("imdb", root, data["imdb"], dev, paths["imdb"]["apfd"])}
+    cut_dir = path_cut("cifar10", os.path.join(root, "datasets"), root)
+    with patched_env({"TIP_DATA_DIR": cut_dir}):
+        clear_loaders()
+        (x_tr, y_tr), nominal, ood = loaders.load_cifar10(device=dev)
+    cut = ((x_tr, y_tr), nominal, ood)
+    runs["cifar10"] = run_bf16_path("cifar10", root, cut, dev, paths["cifar10"]["apfd"],
+                                    data_dir=cut_dir)
+    faults = bf16_cache_faults("mnist", trees["mnist"], data["mnist"][0][0],
+                               runs["mnist"]["assets"], os.path.join(root, "train"), dev)
+    record = {"kernels": kernels, "runs": {f: {k: v for k, v in r.items() if k != "assets"}
+                                           for f, r in runs.items()},
+              "cache_faults": faults, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"bf16_phase_s": record["phase_s"], "cache_faults": faults}))
+    if faults:
+        raise AssertionError("bf16 caches: " + "; ".join(faults))
+    return record
+
+
 def al_spec(data):
     """MNIST's registry study for the AL phase: one-epoch retrains and the
     registry's AL settings (checked), its training base cut to the first
-    ``AL_TRAIN_ROWS`` rows of its loader's."""
-    (x_tr, y_tr), nominal, ood = data
-    cut = ((x_tr[:AL_TRAIN_ROWS], y_tr[:AL_TRAIN_ROWS]), nominal, ood)
+    ``AL_TRAIN_ROWS`` rows of its loader's and its nominal and OOD sets to
+    their first ``AL_TEST_ROWS`` (the OOD set is shuffled, so the cut keeps
+    its mix)."""
+    (x_tr, y_tr), (x_nom, y_nom), (x_ood, y_ood) = data
+    n_nom, n_ood = AL_TEST_ROWS
+    cut = ((x_tr[:AL_TRAIN_ROWS], y_tr[:AL_TRAIN_ROWS]), (x_nom[:n_nom], y_nom[:n_nom]),
+           (x_ood[:n_ood], y_ood[:n_ood]))
     spec = dataclasses.replace(registry_spec(AL_FAMILY), loader=lambda device=None: cut)
     if (spec.al_observed_share, spec.al_num_selected) != (AL_OBSERVED_SHARE, AL_NUM_SELECTED):
         raise AssertionError("AL settings differ from the registry")
@@ -4142,7 +4563,8 @@ def run_active_learning(data, dev, root: str) -> dict:
         "launches": launches,
         "cache_outcomes": {"sa": sa_outcomes, "coverage": recorder.cov_outcomes[0]},
         "reduced": {"epochs": "1 (registry 15)",
-                    "train_rows": f"{AL_TRAIN_ROWS} of {PATHS[AL_FAMILY]['sizes'][0]}"},
+                    "train_rows": f"{AL_TRAIN_ROWS} of {PATHS[AL_FAMILY]['sizes'][0]}",
+                    "test_rows": AL_TEST_ROWS},
         "settings": {"observed_share": AL_OBSERVED_SHARE, "num_selected": AL_NUM_SELECTED},
         "accuracies": {name: {f"{s}:{p}": v for (s, p), v in acc.items()}
                        for name, acc in accuracies.items()},
@@ -4390,6 +4812,7 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    timeline("1")
     t0 = time.perf_counter()
     _build.build()
     _build.library()
@@ -4400,6 +4823,7 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="tip_chip_smoke_")
     paths = {}
     try:
+        timeline("2-4")
         t0 = time.perf_counter()
         studies, data_record = data_phase(os.path.join(root, "datasets"), args.seed, dev)
         data = {family: studies[family] for family in PATHS}
@@ -4412,6 +4836,7 @@ def main() -> int:
         os.environ["TIP_ASSETS"] = os.path.join(root, "train")
         for family in PATHS:
             base.CASE_STUDIES[family] = registry_spec(family)
+        timeline("5")
         training, params = {}, {}
         trees = {}
         for family in PATHS:
@@ -4422,9 +4847,10 @@ def main() -> int:
                    for family in PATHS}
         al_cpu = start_al_selections_cpu(trees[AL_FAMILY], data[AL_FAMILY], root)
 
+        timeline("6")
         kernels = [
             check_fused_forward(params["mnist"], data["mnist"][1][0], dev),
-            check_cifar10_forward(params["cifar10"], data["cifar10"][1][0], dev),
+            check_cifar10_forward(params["cifar10"], data["cifar10"][0][0][:10_000], dev),
             check_flash_attention(params["imdb"], data["imdb"][1][0], dev, args.seed),
             *check_flash_backward(params["imdb"], data["imdb"], dev, args.seed),
         ]
@@ -4440,10 +4866,15 @@ def main() -> int:
                        for family in PATHS}
 
         for family in PATHS:
+            timeline(f"7 {family}")
             paths[family] = run_path(family, params[family], data[family], dev, root)
-        warm = {family: WarmCache(family, root).finish(paths[family]["time_records"])
-                for family in WARM_CACHE_PATHS}
+        timeline("7 warm cache")
+        warm_children = {family: WarmCache(family, root) for family in WARM_CACHE_PATHS}
+        warm = {family: child.finish(paths[family]["time_records"])
+                for family, child in warm_children.items()}
+        timeline("7 spill")
         spill = check_disk_spill("imdb", params["imdb"], data["imdb"], dev, root)
+        timeline("7b")
         t0 = time.perf_counter()
         fused = {family: run_fused_path(family, params[family], data[family], dev, root,
                                         paths[family]["phases_s"])
@@ -4457,23 +4888,37 @@ def main() -> int:
         group = check_group_runner(group_params, data[CHAIN_GROUP_FAMILY], dev)
         chain_phase_s = time.perf_counter() - t0
         print(json.dumps({"chain_phase_s": chain_phase_s, "gpu": smi}))
+        sp_group = SpGroup(params["imdb"]["module"], data["imdb"], dev, root, args.seed)
+        timeline("7d")
+        sched = run_sched_phase(os.path.join(root, "datasets"), dev, root, args.seed)
+        print(json.dumps({"sched_phase_s": sched["phase_s"], "gpu": smi}))
+        # 7c's graph captures run with no CPU-reference child beside them (a
+        # chain capture at registration failed beside them twice, ROADMAP §C
+        # 3), so 7c runs after 7d, when the children have ended
+        print(json.dumps({"children_waited_s_before_7c": wait_children()}))
+        timeline("7c")
         serving = run_serving(params, data, dev, late_params=group_params[1])
         print(json.dumps({"serving_phase_s": serving["phase_s"], "gpu": smi}))
-        sp_group = SpGroup(params["imdb"]["module"], data["imdb"], dev, root, args.seed)
-        sched = run_sched_phase(os.path.join(root, "datasets"), dev, root, args.seed,
-                                paths[SCHED_FAMILY]["slice_s"])
-        print(json.dumps({"sched_phase_s": sched["phase_s"], "gpu": smi}))
+        timeline("7e")
         sp = run_sp_phase(sp_group, dev)
         study_hosts = StudyHosts(os.path.join(root, "datasets"), dev, root)
         print(json.dumps({"sp_phase_s": sp["phase_s"], "gpu": smi}))
+        timeline("9")
         active = run_active_learning(data[AL_FAMILY], dev, root)
         for family in PATHS:
             paths[family]["sa_small"] = paths[family]["sa_small"].finish()
+        timeline("10")
         al_check = compare_al_selections(params[AL_FAMILY], data[AL_FAMILY], dev, al_cpu)
+        timeline("11")
         activations = check_collect_activations(trees[AL_FAMILY], data[AL_FAMILY], dev, root)
+        timeline("12")
         evaluation = run_evaluation_and_check(root)
         sp["study"] = study_hosts.finish()
+        timeline("7f")
         observability = run_obs_phase(params[OBS_FAMILY], data[OBS_FAMILY], dev, root, smi)
+        timeline("7g")
+        bf16 = run_bf16_phase(params, trees, data, dev, root, paths)
+        print(json.dumps({"bf16_phase_s": bf16["phase_s"], "gpu": smi}))
     finally:
         for proc in CHILDREN:
             if proc.poll() is None:
@@ -4490,6 +4935,9 @@ def main() -> int:
                       "sched_phase_s": sched["phase_s"],
                       "sp_phase_s": sp["phase_s"],
                       "obs_phase_s": observability["phase_s"],
+                      "bf16_phase_s": bf16["phase_s"],
+                      "bf16_paths_s": {f: r["slice_s"] for f, r in bf16["runs"].items()},
+                      "timeline_s": TIMELINE,
                       "generate_s": {f: data_record[f]["load_s"] for f in IMAGE_FIXTURES},
                       "command_s": time.perf_counter() - START}))
 
@@ -4525,6 +4973,11 @@ def main() -> int:
     b2["sched_worker_launches"] = sorted(
         w["dsa_nearest"] for w in sched["scheduler"]["launches"].values())
     kernels.insert(1, b2)
+    for k, family in zip(bf16["kernels"], ("mnist", "cifar10", "imdb")):
+        k["launches"] = bf16["runs"][family]["launches"][k["name"]]
+        if family == "cifar10":
+            k["launches_on"] = f"CIFAR-10 run 0 on {PATH_CUTS['cifar10']} of its rows"
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -4537,7 +4990,7 @@ def main() -> int:
                        "fused_chain": {"paths": fused, "graph_vs_eager": graph_eager,
                                        "group_runner": group},
                        "serving": serving, "study_execution": sched,
-                       "sequence_parallel": sp, "observability": observability,
+                       "sequence_parallel": sp, "observability": observability, "bf16": bf16,
                        "at_collection": activations}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

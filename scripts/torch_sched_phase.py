@@ -1,13 +1,12 @@
 """Phase 7d of ``chip_smoke.py`` alone on the card, with what it needs
 before it: MNIST's fixtures at full size (60,000 / 10,000), the MNIST-C set
 generated by the loader on the card, runs 0 and 1 trained one epoch
-(``registry_spec``, cuDNN deterministic), run 0's ``cli.main --phase
-test_prio`` as phase 7 runs it, then ``chip_smoke.run_sched_phase``.
+(``registry_spec``, cuDNN deterministic), then ``chip_smoke.run_sched_phase``
+(which scores its runs on the ``SCHED_DATA`` cut of those files).
 
     python scripts/torch_sched_phase.py
 
-Needs one CUDA card; prints the phase's lines and ``OK`` last. It takes
-about 400 s of command time.
+Needs one CUDA card; prints the phase's lines and ``OK`` last.
 """
 
 import json
@@ -59,11 +58,7 @@ def main() -> int:
         t0 = time.perf_counter()
         CaseStudy(base.CASE_STUDIES["mnist"]).train([0, 1], device=dev)
         print(json.dumps({"train_s": time.perf_counter() - t0}), flush=True)
-        t0 = time.perf_counter()
-        chip_smoke.run_cli("--phase", "test_prio", "--case-study", "mnist", "--runs", "0")
-        run0_s = time.perf_counter() - t0
-        print(json.dumps({"run0_s": run0_s}), flush=True)
-        record = chip_smoke.run_sched_phase(data, dev, root, 0, run0_s)
+        record = chip_smoke.run_sched_phase(data, dev, root, 0)
         print(json.dumps({"phase_s": record["phase_s"], "faults": record["faults"],
                           "command_s": time.perf_counter() - t_all}))
     finally:

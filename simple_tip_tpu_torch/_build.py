@@ -122,12 +122,18 @@ def library() -> ctypes.CDLL:
     lib.tip_mnist_forward.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
     lib.tip_cifar10_forward.restype = i
     lib.tip_cifar10_forward.argtypes = [p] * 12 + [i, i, p]
+    lib.tip_mnist_forward_bf16.restype = i
+    lib.tip_mnist_forward_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+    lib.tip_cifar10_forward_bf16.restype = i
+    lib.tip_cifar10_forward_bf16.argtypes = [p] * 12 + [i, i, p]
     lib.tip_dsa_nearest.restype = i
     lib.tip_dsa_nearest.argtypes = [
         p, p, p, i, p, p, p, p, i, i, i, i, p, i, i, i, i, p, p, p, p, i, p, p, p, p, p,
     ]
     lib.tip_flash_attention_fwd.restype = i
     lib.tip_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.tip_flash_attention_fwd_bf16.restype = i
+    lib.tip_flash_attention_fwd_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
     lib.tip_flash_attention_bwd_dq.restype = i
     lib.tip_flash_attention_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, i, f, p]
     lib.tip_flash_attention_bwd_dkv.restype = i

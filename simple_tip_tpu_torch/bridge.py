@@ -22,11 +22,15 @@ tells the family by its top-level names and returns two layouts of it:
   - besides, each conv that the card multiplies on its tensor cores as
     ``w*_tc``, its im2col matrix as TF32 fragments
     (``ops.fused_forward.tf32_fragments``): MNIST ``w2_tc``, CIFAR-10
-    ``w1_tc``, ``w2_tc`` and ``w3_tc``. The plain versions do not read them;
+    ``w1_tc``, ``w2_tc`` and ``w3_tc``; and as ``w*_bf`` the same matrices
+    as the bf16 kernels' bfloat16 fragments (``bf16_fragments``, K padded
+    with zeros to a multiple of 16: CIFAR-10's conv1 27 -> 32). The plain
+    versions do not read them;
   - IMDB: none (the JAX package has no fused IMDB kernel; its attention
     core is kernel B4 inside the module).
 
-All tensors are float32 on the CPU; callers move them to their device.
+All tensors are float32 on the CPU (the ``*_bf`` fragments bfloat16);
+callers move them to their device.
 ``params_to_jax`` is the inverse of the module layout: a trained module (or
 its ``state_dict``) becomes a flax-layout numpy tree again, with every
 dict's keys sorted as a jitted flax ``init`` returns them, and the IMDB
@@ -42,7 +46,7 @@ import torch
 from torch import nn
 
 from simple_tip_tpu_torch.models import Cifar10ConvNet, ImdbTransformer, MnistConvNet
-from simple_tip_tpu_torch.ops.fused_forward import tf32_fragments
+from simple_tip_tpu_torch.ops.fused_forward import bf16_fragments, tf32_fragments
 
 FAMILIES = ("mnist", "cifar10", "imdb")
 _ATTENTION_NAMES = ("MultiHeadDotProductAttention_0", "SequenceParallelSelfAttention_0")
@@ -101,6 +105,7 @@ def _mnist(params):
         "bd": _f32(bd),
     }
     fused["w2_tc"] = tf32_fragments(fused["w2"])
+    fused["w2_bf"] = bf16_fragments(fused["w2"])
     return module, fused
 
 
@@ -129,6 +134,7 @@ def _cifar10(params):
         fused[f"bd{i}"] = _f32(b)
     for i in range(1, 4):
         fused[f"w{i}_tc"] = tf32_fragments(fused[f"w{i}"])
+        fused[f"w{i}_bf"] = bf16_fragments(fused[f"w{i}"])
     return module, fused
 
 

@@ -26,10 +26,18 @@ Counterpart of the JAX package's ``casestudies/base.py`` ``CaseStudy``:
 A spec's ``loader(device=...)`` returns the three (x, y) pairs; each phase
 passes it the phase's device, on which the image loaders generate a
 missing corruption cache. ``CASE_STUDIES`` is the paper's registry (mnist,
-fmnist, cifar10, imdb), field for field the JAX package's, in float32 (the
-JAX package's bf16 scoring mode is not ported); ``get_case_study``
+fmnist, cifar10, imdb), field for field the JAX package's; ``get_case_study``
 resolves it, then the mini studies (``casestudies/mini.py``), then the
 ``TIP_CASE_STUDY_PROVIDER`` hook.
+
+The scoring forwards may run in bfloat16, as in the JAX package:
+``TIP_COMPUTE_DTYPE=bfloat16`` (``config.scoring_compute_dtype``; any value
+but float32 / bfloat16 raises ``ValueError``) makes ``scoring_model_def``
+the model in the bf16 scoring mode, which scores ``test_prio`` (per run and
+grouped) and the active-learning selections and the original model's
+accuracy there. Training, the retrains and their accuracy, and
+``at_collection`` stay float32 (``model_def``). Worker processes inherit
+the variable.
 """
 
 import importlib
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from simple_tip_tpu_torch.bridge import params_from_jax, params_to_jax
-from simple_tip_tpu_torch.config import subdir
+from simple_tip_tpu_torch.config import scoring_compute_dtype, subdir
 from simple_tip_tpu_torch.data import load_cifar10, load_fmnist, load_imdb, load_mnist
 from simple_tip_tpu_torch.device import DeviceLike, resolve
 from simple_tip_tpu_torch.engine import (
@@ -97,6 +105,12 @@ class CaseStudy:
     def __init__(self, spec: CaseStudySpec):
         self.spec = spec
         self.model_def = spec.model_factory()
+        # The scoring forwards may run in bf16 (TIP_COMPUTE_DTYPE); training
+        # always stays float32, so checkpoints are unaffected.
+        dtype = scoring_compute_dtype()
+        self.scoring_model_def = (
+            spec.model_factory(compute_dtype=dtype) if dtype else self.model_def
+        )
 
     # -- checkpointing -------------------------------------------------------
 
@@ -207,7 +221,7 @@ class CaseStudy:
             return eval_prioritization.evaluate_group(
                 model_ids=list(model_ids),
                 case_study=self.spec.name,
-                model_def=self.model_def,
+                model_def=self.scoring_model_def,
                 params_loader=lambda model_id: params_from_jax(self.load_params(model_id)),
                 training_dataset=x_train,
                 nominal_test_dataset=x_test,
@@ -228,7 +242,7 @@ class CaseStudy:
             phases[model_id] = eval_prioritization.evaluate(
                 model_id=model_id,
                 case_study=self.spec.name,
-                model_def=self.model_def,
+                model_def=self.scoring_model_def,
                 params=params,
                 training_dataset=x_train,
                 nominal_test_dataset=x_test,
@@ -276,7 +290,7 @@ class CaseStudy:
             runs[model_id] = eval_active_learning.evaluate(
                 model_id=model_id,
                 case_study=self.spec.name,
-                model_def=self.model_def,
+                model_def=self.scoring_model_def,
                 params=params,
                 train_x=x_train,
                 nominal_test_x=x_test,

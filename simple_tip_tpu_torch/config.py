@@ -8,9 +8,13 @@ package, so the plotters read the port's artifacts unchanged:
 
 Raw datasets are read from ``TIP_DATA_DIR`` (default ``./datasets``), the
 JAX package's folder, so both packages read and write the same caches.
+
+``scoring_compute_dtype`` reads ``TIP_COMPUTE_DTYPE``, the JAX package's
+knob for the scoring forwards' compute dtype.
 """
 
 import os
+from typing import Optional
 
 
 def output_folder() -> str:
@@ -28,3 +32,21 @@ def subdir(name: str) -> str:
     path = os.path.join(output_folder(), name)
     os.makedirs(path, exist_ok=True)
     return path
+
+
+def scoring_compute_dtype() -> Optional[str]:
+    """Compute dtype of the *scoring* forwards (prioritization and the
+    active-learning selection), from ``TIP_COMPUTE_DTYPE``: unset,
+    ``float32`` or ``f32`` is float32 (None); ``bfloat16`` or ``bf16`` is
+    ``"bfloat16"``; anything else raises ``ValueError``, as in the JAX
+    package. Training and ``at_collection`` always run float32. Stdlib
+    only: the models turn the name into a torch dtype.
+    """
+    value = os.environ.get("TIP_COMPUTE_DTYPE", "").strip().lower()
+    if value in ("", "float32", "f32"):
+        return None
+    if value in ("bfloat16", "bf16"):
+        return "bfloat16"
+    raise ValueError(
+        f"TIP_COMPUTE_DTYPE={value!r} not understood; use 'float32' or 'bfloat16'"
+    )

@@ -73,7 +73,8 @@ class CoverageWorker:
 
         net = base_model.net
         stats_cache = CoverageStatsCache.from_env(
-            params_to_jax(net.family, net), training_set, base_model.activation_layers)
+            params_to_jax(net.family, net), training_set, base_model.activation_layers,
+            compute_dtype=getattr(net, "compute_dtype", None))
         self.stats_cache_outcome = "off" if stats_cache is None else "miss"
         stats = None
         if stats_cache is not None:

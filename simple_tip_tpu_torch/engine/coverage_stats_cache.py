@@ -12,7 +12,11 @@ atomic, a load checks the meta, and any read failure is a logged miss that
 the recompute overwrites. The key is ``content_fingerprint`` under this
 package's version string and its ``torch`` tag (no cluster-backend tag:
 the statistics do not depend on one), so the two packages never load each
-other's entries.
+other's entries; a worker of the bf16 scoring mode adds the ``bfloat16``
+tag (``sa_prep.dtype_tags``: its taps are the bf16 model's), float32 keys
+carry none. Outcomes count as in the JAX package:
+``cov_stats_cache.{hit,miss,stale,corrupt,store}`` counters and
+``cov_stats_cache`` events in ``obs``.
 """
 
 import logging
@@ -23,8 +27,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from simple_tip_tpu_torch import obs
 from simple_tip_tpu_torch.config import output_folder
-from simple_tip_tpu_torch.engine.sa_prep import BACKEND_TAG, content_fingerprint
+from simple_tip_tpu_torch.engine.sa_prep import BACKEND_TAG, content_fingerprint, dtype_tags
 from simple_tip_tpu_torch.utils.artifacts_io import atomic_write_bytes, sweep_orphan_tmp
 
 logger = logging.getLogger(__name__)
@@ -44,17 +49,18 @@ class CoverageStatsCache:
         sweep_orphan_tmp(self.root)
 
     @classmethod
-    def from_env(cls, params, training_set, activation_layers: Sequence
-                 ) -> Optional["CoverageStatsCache"]:
+    def from_env(cls, params, training_set, activation_layers: Sequence,
+                 compute_dtype=None) -> Optional["CoverageStatsCache"]:
         """The cache of ``TIP_COV_STATS_CACHE_DIR`` (None when ``off`` or
-        ``0``) for the flax-layout ``params``."""
+        ``0``) for the flax-layout ``params`` of a model scoring in
+        ``compute_dtype``."""
         raw = os.environ.get("TIP_COV_STATS_CACHE_DIR", "").strip()
         if raw.lower() in ("off", "0"):
             return None
         if not raw:
             raw = os.path.join(output_folder(), "coverage_stats_cache")
         fp = content_fingerprint(COV_STATS_FORMAT_VERSION, params, training_set,
-                                 activation_layers, BACKEND_TAG)
+                                 activation_layers, BACKEND_TAG, *dtype_tags(compute_dtype))
         return cls(root=raw, fingerprint=fp)
 
     @property
@@ -74,14 +80,22 @@ class CoverageStatsCache:
                 or meta["fingerprint"] != self.fingerprint
             ):
                 logger.info("coverage-stats cache STALE (%s)", path)
+                obs.counter("cov_stats_cache.stale").inc()
+                obs.event("cov_stats_cache", outcome="stale")
                 return None
             stats = tuple([torch.from_numpy(np.asarray(a)).to(device) for a in stat]
                           for stat in entry["stats"])
         except FileNotFoundError:
+            obs.counter("cov_stats_cache.miss").inc()
+            obs.event("cov_stats_cache", outcome="miss")
             return None
         except Exception as e:  # noqa: BLE001 - an unreadable entry is recomputed
             logger.warning("coverage-stats cache entry corrupt (%s: %r); recomputing", path, e)
+            obs.counter("cov_stats_cache.corrupt").inc()
+            obs.event("cov_stats_cache", outcome="corrupt")
             return None
+        obs.counter("cov_stats_cache.hit").inc()
+        obs.event("cov_stats_cache", outcome="hit")
         logger.info("coverage-stats cache HIT (%s)", path)
         return stats
 
@@ -96,5 +110,6 @@ class CoverageStatsCache:
             }
             atomic_write_bytes(self.path, pickle.dumps(entry, protocol=4))
             logger.info("coverage-stats cache stored (%s)", self.path)
+            obs.counter("cov_stats_cache.store").inc()
         except Exception as e:  # noqa: BLE001 - the cache only saves time
             logger.warning("coverage-stats cache store failed (%r)", e)

@@ -110,6 +110,14 @@ KERNEL_COUNTERS = (
     (flash_attention, "BWD_DQ_LAUNCHES"),
     (flash_attention, "BWD_DKV_LAUNCHES"),
 )
+#: The bf16 scoring mode's kernels' counters, kept true across replays too.
+BF16_KERNEL_COUNTERS = (
+    (fused_forward, "BF16_LAUNCHES"),
+    (fused_forward, "CIFAR_BF16_LAUNCHES"),
+    (flash_attention, "BF16_LAUNCHES"),
+)
+#: Every counter a program records (``Program.recorded``, in this order).
+PROGRAM_COUNTERS = KERNEL_COUNTERS + BF16_KERNEL_COUNTERS
 
 _RESOLVED: "collections.OrderedDict[str, Program]" = collections.OrderedDict()
 _COUNTER_LOCK = threading.Lock()
@@ -164,11 +172,14 @@ def _coverage_layout(metrics, n_neurons: int, int8: bool) -> tuple:
 def _stamp_cost(program: str, model_def, rows: int, layout: tuple, members: int = 1) -> None:
     """Register ``program``'s analytic cost: ``members`` x ``rows`` chain
     rows of the family of ``model_def`` over the coverage ``layout``
-    (``_coverage_layout``; none for a model without a count)."""
+    (``_coverage_layout``; none for a model without a count), in the
+    model's compute dtype (a bf16 module is graded against the bf16 peak)."""
     n, bits, table_bytes = layout
+    dtype = "bfloat16" if getattr(model_def, "compute_dtype", None) is not None else None
     try:
         cost = devicemeter.chain_cost(getattr(model_def, "family", ""), members * rows, n, bits,
-                                      table_bytes=members * table_bytes, head_bytes=_HEAD_BYTES)
+                                      table_bytes=members * table_bytes, head_bytes=_HEAD_BYTES,
+                                      compute_dtype=dtype)
     except ValueError:
         cost = None
     devicemeter.record_program_cost(program, cost)
@@ -360,14 +371,14 @@ def select_fingerprint(n: int, k: int, *tags) -> str:
     return h.hexdigest()
 
 
-def _read_counters() -> List[int]:
+def _read_counters(counters: Sequence = KERNEL_COUNTERS) -> List[int]:
     with _COUNTER_LOCK:
-        return [getattr(module, attr) for module, attr in KERNEL_COUNTERS]
+        return [getattr(module, attr) for module, attr in counters]
 
 
-def _add_counters(deltas: Sequence[int]) -> None:
+def _add_counters(deltas: Sequence[int], counters: Sequence = KERNEL_COUNTERS) -> None:
     with _COUNTER_LOCK:
-        for (module, attr), d in zip(KERNEL_COUNTERS, deltas):
+        for (module, attr), d in zip(counters, deltas):
             if d:
                 setattr(module, attr, getattr(module, attr) + d)
 
@@ -390,7 +401,7 @@ class Program:
         self.device = device
         self.graph = None
         self.outputs = None
-        self.recorded = [0] * len(KERNEL_COUNTERS)
+        self.recorded = [0] * len(PROGRAM_COUNTERS)
         self.lock = threading.Lock()
         self.bound = None
         if device.type == "cuda":
@@ -406,13 +417,13 @@ class Program:
             for _ in range(WARMUP_RUNS):
                 self.fn(*self.args)
         stream.wait_stream(side)
-        before = _read_counters()
+        before = _read_counters(PROGRAM_COUNTERS)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outputs = self.fn(*self.args)
-        after = _read_counters()
+        after = _read_counters(PROGRAM_COUNTERS)
         self.recorded = [a - b for a, b in zip(after, before)]
-        _add_counters([-d for d in self.recorded])
+        _add_counters([-d for d in self.recorded], PROGRAM_COUNTERS)
         self.graph, self.outputs = graph, outputs
 
     @torch.no_grad()
@@ -420,7 +431,7 @@ class Program:
         if self.graph is None:
             return self.fn(*self.args)
         self.graph.replay()
-        _add_counters(self.recorded)
+        _add_counters(self.recorded, PROGRAM_COUNTERS)
         return self.outputs
 
 

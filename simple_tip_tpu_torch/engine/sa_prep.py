@@ -16,7 +16,15 @@ Counterpart of the serial part of the JAX package's ``engine/sa_prep.py``:
   ``test_prio``. The fingerprint (``content_fingerprint``) hashes the
   weights in flax layout, the training set and the taps, in the JAX
   package's order, under this package's own version string and a ``torch``
-  tag: an entry of one package never loads in the other.
+  tag: an entry of one package never loads in the other. A handler of the
+  bf16 scoring mode adds a ``bfloat16`` tag (``dtype_tags``): its traces
+  are the bf16 model's, so its fits are another entry. float32 keys carry
+  no dtype tag and are the keys of earlier versions. The JAX package's
+  keys hash no compute dtype (a deliberate difference).
+- the cache counts its outcomes as the JAX package does
+  (``sa_fit_cache.{hit,miss,stale,corrupt,store,evict}`` counters and
+  ``sa_cache`` events in ``obs``), and retries an entry's read on transient
+  ``OSError``s under the ``sa_cache`` retry scope before it is a miss.
 
 Entries hold no device: every tensor is written as a host array and read
 back onto the device the reading handler runs on (``load``), so an entry
@@ -36,6 +44,7 @@ from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Sequen
 import numpy as np
 import torch
 
+from simple_tip_tpu_torch import obs
 from simple_tip_tpu_torch.config import output_folder
 from simple_tip_tpu_torch.device import DeviceLike, resolve
 from simple_tip_tpu_torch.ops.surprise import (
@@ -47,6 +56,7 @@ from simple_tip_tpu_torch.ops.surprise import (
 )
 from simple_tip_tpu_torch.ops.timer import Timer
 from simple_tip_tpu_torch.resilience import faults
+from simple_tip_tpu_torch.resilience.retry import RetryPolicy
 from simple_tip_tpu_torch.utils.artifacts_io import atomic_write_bytes, sweep_orphan_tmp
 
 logger = logging.getLogger(__name__)
@@ -146,12 +156,23 @@ def content_fingerprint(
     return h.hexdigest()
 
 
-def train_fingerprint(params, training_dataset, sa_layers: Sequence) -> str:
+def dtype_tags(compute_dtype) -> tuple:
+    """The cache-key tags of a model's scoring compute dtype: none for
+    float32 (None), so that float32 keys stay those of earlier versions;
+    ``("bfloat16",)`` for the bf16 scoring mode, whose traces differ."""
+    if compute_dtype is None or str(compute_dtype) in ("float32", "torch.float32"):
+        return ()
+    return ("bfloat16",)
+
+
+def train_fingerprint(params, training_dataset, sa_layers: Sequence,
+                      compute_dtype=None) -> str:
     """The SA fit cache's key: ``content_fingerprint`` of this package's
     version under the ``torch`` tag (the JAX package tags its cluster
-    backend there)."""
+    backend there), and the bf16 scoring mode's tag (``dtype_tags``)."""
     return content_fingerprint(
-        CACHE_FORMAT_VERSION, params, training_dataset, sa_layers, BACKEND_TAG
+        CACHE_FORMAT_VERSION, params, training_dataset, sa_layers, BACKEND_TAG,
+        *dtype_tags(compute_dtype),
     )
 
 
@@ -230,9 +251,11 @@ class SAFitCache:
 
     @classmethod
     def from_env(cls, case_study: Optional[str], model_id, params, training_dataset,
-                 sa_layers, device: DeviceLike = None) -> Optional["SAFitCache"]:
+                 sa_layers, device: DeviceLike = None,
+                 compute_dtype=None) -> Optional["SAFitCache"]:
         """The cache of ``TIP_SA_CACHE_DIR`` (None when ``off`` or ``0``) for
-        the flax-layout ``params``; its loads land on ``device``."""
+        the flax-layout ``params`` of a model scoring in ``compute_dtype``;
+        its loads land on ``device``."""
         raw = os.environ.get("TIP_SA_CACHE_DIR", "").strip()
         if raw.lower() in ("off", "0"):
             return None
@@ -242,7 +265,7 @@ class SAFitCache:
             root=raw,
             case_study=case_study or "default",
             model_ref="na" if model_id is None else str(model_id),
-            fingerprint=train_fingerprint(params, training_dataset, sa_layers),
+            fingerprint=train_fingerprint(params, training_dataset, sa_layers, compute_dtype),
             device=resolve(device),
         )
 
@@ -252,35 +275,62 @@ class SAFitCache:
             f"{self.case_study}_{self.model_ref}_{self.fingerprint[:16]}_{sa_name}.pkl",
         )
 
+    def _read(self, path: str, sa_name: str, device: torch.device):
+        """One read of an entry: ``(True, scorer)``, or ``(False, None)``
+        when its meta is another version's, variant's or fingerprint's (the
+        scorer is then not read)."""
+        with open(path, "rb") as f:
+            meta = pickle.load(f)
+            if (
+                meta["version"] != CACHE_FORMAT_VERSION
+                or meta["variant"] != sa_name
+                or meta["fingerprint"] != self.fingerprint
+            ):
+                return False, None
+            return True, _DeviceUnpickler(f, device).load()
+
     def load(self, sa_name: str, device: DeviceLike = None):
         """The cached scorer with its tensors on ``device`` (default: the
         cache's), or None for a missing, stale or unreadable entry.
 
-        The ``sa_cache.load`` fault seam (``resilience/faults.py``) may
-        garble the entry on disk first (``corrupt``): the read then fails
-        and the entry is a logged miss, which the refit overwrites."""
+        A transient ``OSError`` (a briefly unavailable shared mount, not a
+        bad pickle, which no retry fixes) is retried under the ``sa_cache``
+        scope of the retry policy before the entry is a miss. Each outcome
+        counts in ``sa_fit_cache.{hit,miss,stale,corrupt}`` with an
+        ``sa_cache`` event. The ``sa_cache.load`` fault seam
+        (``resilience/faults.py``) may garble the entry on disk first
+        (``corrupt``): the read then fails and the entry is a logged miss,
+        which the refit overwrites."""
         path = self.path(sa_name)
         device = self.device if device is None else resolve(device)
         fault = faults.maybe_inject("sa_cache.load", variant=sa_name, path=path)
         if fault is not None and fault.kind == "corrupt":
             faults.corrupt_file(path)
         try:
-            with open(path, "rb") as f:
-                meta = pickle.load(f)
-                if (
-                    meta["version"] != CACHE_FORMAT_VERSION
-                    or meta["variant"] != sa_name
-                    or meta["fingerprint"] != self.fingerprint
-                ):
-                    logger.info("sa-fit cache STALE for %s (%s)", sa_name, path)
-                    return None
-                scorer = _DeviceUnpickler(f, device).load()
+            fresh, scorer = RetryPolicy.from_env(
+                scope="sa_cache", attempts=2, base_s=0.05, deadline_s=10.0
+            ).call(
+                self._read, path, sa_name, device,
+                transient=(OSError,), fatal=(FileNotFoundError,),
+                describe=f"sa-fit cache read ({sa_name})",
+            )
         except FileNotFoundError:
+            obs.counter("sa_fit_cache.miss").inc()
+            obs.event("sa_cache", variant=sa_name, outcome="miss")
             return None
         except Exception as e:  # noqa: BLE001 - an unreadable entry is refitted
             logger.warning("sa-fit cache entry corrupt for %s (%s: %r); refitting",
                            sa_name, path, e)
+            obs.counter("sa_fit_cache.corrupt").inc()
+            obs.event("sa_cache", variant=sa_name, outcome="corrupt")
             return None
+        if not fresh:
+            logger.info("sa-fit cache STALE for %s (%s)", sa_name, path)
+            obs.counter("sa_fit_cache.stale").inc()
+            obs.event("sa_cache", variant=sa_name, outcome="stale")
+            return None
+        obs.counter("sa_fit_cache.hit").inc()
+        obs.event("sa_cache", variant=sa_name, outcome="hit")
         try:
             os.utime(path)  # LRU recency: a hit is the last to be evicted
         except OSError:
@@ -288,7 +338,9 @@ class SAFitCache:
         return scorer
 
     def store(self, sa_name: str, scorer) -> None:
-        """Write one fitted scorer (atomic; a failure warns, never raises)."""
+        """Write one fitted scorer (atomic; a failure warns, never raises),
+        counted in ``sa_fit_cache.store``; entries evicted past the size cap
+        count in ``sa_fit_cache.evict``."""
         path = self.path(sa_name)
         try:
             os.makedirs(self.root, exist_ok=True)
@@ -304,6 +356,7 @@ class SAFitCache:
             _HostPickler(buf, protocol=4).dump(scorer)
             atomic_write_bytes(path, buf.getvalue())
             logger.info("sa-fit cache stored %s (%s)", sa_name, path)
+            obs.counter("sa_fit_cache.store").inc()
             self._sweep(keep=path)
         except Exception as e:  # noqa: BLE001 - the cache only saves time
             logger.warning("sa-fit cache store failed for %s (%r)", sa_name, e)
@@ -338,3 +391,5 @@ class SAFitCache:
                 continue
             total -= size
             logger.info("sa-fit cache evicted %s (cap %d bytes)", full, cap)
+            obs.counter("sa_fit_cache.evict").inc()
+            obs.event("sa_cache", outcome="evict", path=full)

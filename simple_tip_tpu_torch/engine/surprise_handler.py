@@ -101,7 +101,8 @@ class SurpriseHandler:
         net = self.base_model.net
         # hashed once per handler; None when the cache is off
         self.cache = SAFitCache.from_env(case_study, model_id, params_to_jax(net.family, net),
-                                         training_dataset, self.sa_layers, self.device)
+                                         training_dataset, self.sa_layers, self.device,
+                                         compute_dtype=getattr(net, "compute_dtype", None))
         self.train_at_timer = Timer(device=self.device)
         self.cache_outcomes: Dict[str, str] = {}
         self._prep: Optional[SharedTrainPrep] = None

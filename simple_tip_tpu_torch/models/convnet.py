@@ -16,6 +16,12 @@ the SA features match the reference.
 Dropout is active only with ``train=True`` and draws from an explicit
 ``torch.Generator`` (flax semantics: keep with probability ``1 - rate`` and
 scale kept values by ``1 / (1 - rate)``).
+
+``compute_dtype="bfloat16"`` is the JAX models' bf16 scoring mode
+(``models/precision.py``): convolutions and dense layers in bfloat16 with
+their biases added in bfloat16, relu, pools and dropout on bfloat16, taps
+cast to float32 and the softmax on float32 logits. The default (None) is
+float32.
 """
 
 from typing import Dict, Optional, Tuple
@@ -23,6 +29,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from simple_tip_tpu_torch.models.precision import (
+    DtypeLike,
+    as_compute_dtype,
+    conv2d,
+    linear,
+    repr_suffix,
+)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
@@ -41,27 +55,41 @@ class MnistConvNet(nn.Module):
     nc_layers = (0, 1, 2, 3)
     all_layers = (0, 1, 2, 3, 4, 5, 6)
 
-    def __init__(self, num_classes: int = 10, dropout_rate: float = 0.5):
+    def __init__(self, num_classes: int = 10, dropout_rate: float = 0.5,
+                 compute_dtype: DtypeLike = None):
         super().__init__()
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
+        self.compute_dtype = as_compute_dtype(compute_dtype)
         self.conv1 = nn.Conv2d(1, 32, 3)
         self.conv2 = nn.Conv2d(32, 64, 3)
         self.dense = nn.Linear(1600, num_classes)
 
-    def features(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
-        """Taps 0-4 (NHWC) of the deterministic trunk before dropout."""
+    def extra_repr(self) -> str:
+        return repr_suffix(self.compute_dtype)
+
+    def _trunk(self, x: torch.Tensor) -> Tuple[Dict[int, torch.Tensor], torch.Tensor]:
+        """Taps 0-3 (NHWC, float32) and the flattened features in the
+        compute dtype."""
+        cdt = self.compute_dtype
         h = x.permute(0, 3, 1, 2)
+        if cdt is not None:
+            h = h.to(cdt)
         taps: Dict[int, torch.Tensor] = {}
-        h = F.relu(self.conv1(h))
-        taps[0] = h.permute(0, 2, 3, 1)
+        h = F.relu(conv2d(self.conv1, h, cdt))
+        taps[0] = h.permute(0, 2, 3, 1).float()
         h = F.max_pool2d(h, 2)
-        taps[1] = h.permute(0, 2, 3, 1)
-        h = F.relu(self.conv2(h))
-        taps[2] = h.permute(0, 2, 3, 1)
+        taps[1] = h.permute(0, 2, 3, 1).float()
+        h = F.relu(conv2d(self.conv2, h, cdt))
+        taps[2] = h.permute(0, 2, 3, 1).float()
         h = F.max_pool2d(h, 2)
-        taps[3] = h.permute(0, 2, 3, 1)
-        taps[4] = taps[3].reshape(h.shape[0], -1)
+        taps[3] = h.permute(0, 2, 3, 1).float()
+        return taps, h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+
+    def features(self, x: torch.Tensor) -> Dict[int, torch.Tensor]:
+        """Taps 0-4 (NHWC, float32) of the deterministic trunk before dropout."""
+        taps, flat = self._trunk(x)
+        taps[4] = flat.float()
         return taps
 
     def head(
@@ -70,12 +98,16 @@ class MnistConvNet(nn.Module):
         train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(dropout output, probabilities) from the NHWC-flattened features."""
+        """(dropout output, probabilities) from the NHWC-flattened features
+        (in the compute dtype, which a float32 copy of them is cast back to)."""
+        cdt = self.compute_dtype
+        if cdt is not None:
+            flat = flat.to(cdt)
         if train:
             if generator is None:
                 raise ValueError("train=True needs an explicit torch.Generator")
             flat = dropout(flat, self.dropout_rate, generator)
-        probs = torch.softmax(self.dense(flat), dim=-1)
+        probs = torch.softmax(linear(self.dense, flat, cdt).float(), dim=-1)
         return flat, probs
 
     def forward(
@@ -85,15 +117,17 @@ class MnistConvNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
         """``(probs, taps)`` for NHWC input ``x``."""
-        taps = self.features(x)
-        taps[5], probs = self.head(taps[4], train=train, generator=generator)
+        taps, flat = self._trunk(x)
+        taps[4] = flat.float()
+        flat, probs = self.head(flat, train=train, generator=generator)
+        taps[5] = flat.float()
         taps[6] = probs
         return probs, taps
 
     def vote_prefix(self, x: torch.Tensor) -> torch.Tensor:
         """The deterministic part of a stochastic forward: everything before
-        the only dropout site (the flattened features)."""
-        return self.features(x)[4]
+        the only dropout site (the flattened features, in the compute dtype)."""
+        return self._trunk(x)[1]
 
     def vote_probs(self, flat: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         """Probabilities of one stochastic forward from ``vote_prefix``'s output."""
@@ -109,9 +143,10 @@ class Cifar10ConvNet(nn.Module):
     nc_layers = (0, 1, 2, 3)
     all_layers = (0, 1, 2, 3, 4, 5, 6, 7)
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10, compute_dtype: DtypeLike = None):
         super().__init__()
         self.num_classes = num_classes
+        self.compute_dtype = as_compute_dtype(compute_dtype)
         self.conv1 = nn.Conv2d(3, 32, 3)
         self.conv2 = nn.Conv2d(32, 64, 3)
         self.conv3 = nn.Conv2d(64, 64, 3)
@@ -127,20 +162,28 @@ class Cifar10ConvNet(nn.Module):
         """``(probs, taps)`` for NHWC input ``x`` ``[B, 32, 32, 3]``; the
         model has no dropout, so ``train`` and ``generator`` change nothing
         (they keep the training loop's call the same for every family)."""
+        cdt = self.compute_dtype
         h = x.permute(0, 3, 1, 2)
+        if cdt is not None:
+            h = h.to(cdt)
         taps: Dict[int, torch.Tensor] = {}
-        h = F.relu(self.conv1(h))
-        taps[0] = h.permute(0, 2, 3, 1)
+        h = F.relu(conv2d(self.conv1, h, cdt))
+        taps[0] = h.permute(0, 2, 3, 1).float()
         h = F.max_pool2d(h, 2)
-        taps[1] = h.permute(0, 2, 3, 1)
-        h = F.relu(self.conv2(h))
-        taps[2] = h.permute(0, 2, 3, 1)
+        taps[1] = h.permute(0, 2, 3, 1).float()
+        h = F.relu(conv2d(self.conv2, h, cdt))
+        taps[2] = h.permute(0, 2, 3, 1).float()
         h = F.max_pool2d(h, 2)
-        taps[3] = h.permute(0, 2, 3, 1)
-        h = F.relu(self.conv3(h))
-        taps[4] = h.permute(0, 2, 3, 1)
-        taps[5] = taps[4].reshape(h.shape[0], -1)
-        taps[6] = F.relu(self.dense1(taps[5]))
-        probs = torch.softmax(self.dense2(taps[6]), dim=-1)
+        taps[3] = h.permute(0, 2, 3, 1).float()
+        h = F.relu(conv2d(self.conv3, h, cdt))
+        taps[4] = h.permute(0, 2, 3, 1).float()
+        flat = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        taps[5] = flat.float()
+        hd = F.relu(linear(self.dense1, flat, cdt))
+        taps[6] = hd.float()
+        probs = torch.softmax(linear(self.dense2, hd, cdt).float(), dim=-1)
         taps[7] = probs
         return probs, taps
+
+    def extra_repr(self) -> str:
+        return repr_suffix(self.compute_dtype)

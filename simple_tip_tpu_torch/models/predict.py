@@ -9,7 +9,9 @@ model's device once per call; results stay on that device.
   has one (``ops/fused_forward.py``: kernel B1 for the MNIST convnet, B3 for
   the CIFAR-10 convnet, on the card; their plain versions on the CPU), and
   through the module otherwise (the IMDB transformer, whose attention core
-  is kernel B4).
+  is kernel B4). A module in the bf16 scoring mode (``compute_dtype``
+  bfloat16) takes the bf16 fused forwards (B1 and B3 in bf16) and B4's bf16
+  forward.
 - Taps come from the module (cuDNN convolutions on the card; the JAX package
   computes them in XLA outside any Pallas kernel too).
 - The MC-dropout votes run a model's deterministic prefix (``vote_prefix``:
@@ -25,10 +27,18 @@ import torch
 from torch import nn
 
 from simple_tip_tpu_torch.models.convnet import Cifar10ConvNet, MnistConvNet
-from simple_tip_tpu_torch.ops.fused_forward import fused_cifar10_probs, fused_mnist_probs
+from simple_tip_tpu_torch.ops.fused_forward import (
+    fused_cifar10_probs,
+    fused_cifar10_probs_bf16,
+    fused_mnist_probs,
+    fused_mnist_probs_bf16,
+)
 
 PREDICT_BATCH = 8192
 _FUSED_FORWARD = {MnistConvNet: fused_mnist_probs, Cifar10ConvNet: fused_cifar10_probs}
+# the bf16 scoring mode's (a module with compute_dtype bfloat16)
+_FUSED_FORWARD_BF16 = {MnistConvNet: fused_mnist_probs_bf16,
+                       Cifar10ConvNet: fused_cifar10_probs_bf16}
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -44,9 +54,11 @@ def predict(
     net: nn.Module, fused: Dict[str, torch.Tensor], x: np.ndarray, device: torch.device
 ) -> torch.Tensor:
     """Softmax probabilities ``[N, classes]`` on ``device``: the family's
-    fused forward over the bridge's operands ``fused``, or the module."""
+    fused forward (of the module's compute dtype) over the bridge's
+    operands ``fused``, or the module."""
     xs = to_device(x, device)
-    fused_fn = _FUSED_FORWARD.get(type(net))
+    bf16 = getattr(net, "compute_dtype", None) is not None
+    fused_fn = (_FUSED_FORWARD_BF16 if bf16 else _FUSED_FORWARD).get(type(net))
     outs = []
     for start in range(0, xs.shape[0], PREDICT_BATCH):
         xb = xs[start : start + PREDICT_BATCH]

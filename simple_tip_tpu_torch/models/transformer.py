@@ -31,6 +31,15 @@ Dropout is active only with ``train=True`` and draws from an explicit
 ``torch.Generator``; ``vote_prefix``/``vote_probs`` split a stochastic
 forward at the first dropout site (after the attention output), so the
 deterministic prefix can run once for many samples.
+
+``compute_dtype="bfloat16"`` is the JAX model's bf16 scoring mode
+(``models/precision.py``): embeddings, projections, the FFN and the dense
+head in bfloat16 with biases added in bfloat16; q, k and v reach the flash
+core in bfloat16 (B4's bf16 forward), as the JAX flash core gets them; the
+layer norms take float32 statistics and return bfloat16; the mean over the
+sequence sums in float32 and returns bfloat16; taps are float32 and the
+softmax runs on float32 logits. It runs on one rank: a ring or ulysses
+group raises.
 """
 
 from typing import Dict, Optional, Tuple
@@ -40,6 +49,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from simple_tip_tpu_torch.models.convnet import dropout
+from simple_tip_tpu_torch.models.precision import (
+    DtypeLike,
+    as_compute_dtype,
+    embedding,
+    linear,
+    repr_suffix,
+)
 from simple_tip_tpu_torch.ops.flash_attention import flash_attention
 from simple_tip_tpu_torch.parallel.ring_attention import ring_attention_sharded
 from simple_tip_tpu_torch.parallel.ulysses_attention import ulysses_attention_sharded
@@ -48,7 +64,9 @@ ATTENTION_IMPLS = ("dense", "ring", "ulysses", "flash")
 
 
 class FlaxLayerNorm(nn.Module):
-    """Flax ``nn.LayerNorm`` over the last axis (fast-variance form)."""
+    """Flax ``nn.LayerNorm`` over the last axis (fast-variance form). A
+    bfloat16 input is normalised in float32 and returned in bfloat16, as
+    flax's ``LayerNorm(dtype=bfloat16)`` does."""
 
     def __init__(self, dim: int, epsilon: float = 1e-6):
         super().__init__()
@@ -57,6 +75,8 @@ class FlaxLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return self.forward(x.float()).to(x.dtype)
         mu = x.mean(dim=-1, keepdim=True)
         mu2 = (x * x).mean(dim=-1, keepdim=True)
         var = torch.clamp_min(mu2 - mu * mu, 0.0)
@@ -66,14 +86,17 @@ class FlaxLayerNorm(nn.Module):
 class TokenAndPositionEmbedding(nn.Module):
     """Token embedding plus learned position embedding (positions ``arange(T)``)."""
 
-    def __init__(self, maxlen: int, vocab_size: int, embed_dim: int):
+    def __init__(self, maxlen: int, vocab_size: int, embed_dim: int,
+                 compute_dtype: DtypeLike = None):
         super().__init__()
+        self.compute_dtype = as_compute_dtype(compute_dtype)
         self.token = nn.Embedding(vocab_size, embed_dim)
         self.position = nn.Embedding(maxlen, embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         positions = torch.arange(x.shape[-1], device=x.device)
-        return self.token(x) + self.position(positions)
+        cdt = self.compute_dtype
+        return embedding(self.token, x, cdt) + embedding(self.position, positions, cdt)
 
 
 class SelfAttention(nn.Module):
@@ -83,7 +106,7 @@ class SelfAttention(nn.Module):
     every token, token 0 included, as in the reference."""
 
     def __init__(self, embed_dim: int, num_heads: int, head_dim: int,
-                 impl: str = "dense", group=None):
+                 impl: str = "dense", group=None, compute_dtype: DtypeLike = None):
         super().__init__()
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention_impl {impl!r}; "
@@ -97,6 +120,10 @@ class SelfAttention(nn.Module):
         self.head_dim = head_dim
         self.impl = impl
         self.group = group if impl in ("ring", "ulysses") else None
+        self.compute_dtype = as_compute_dtype(compute_dtype)
+        if self.group is not None and self.compute_dtype is not None:
+            raise ValueError("the bf16 scoring mode runs the one-rank flash core; "
+                             "ring and ulysses groups run float32")
         width = num_heads * head_dim
         self.query = nn.Linear(embed_dim, width)
         self.key = nn.Linear(embed_dim, width)
@@ -106,8 +133,10 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
 
+        cdt = self.compute_dtype
+
         def heads(proj):
-            return proj(x).reshape(b, t, self.num_heads, self.head_dim)
+            return linear(proj, x, cdt).reshape(b, t, self.num_heads, self.head_dim)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
         if self.group is None:
@@ -116,18 +145,20 @@ class SelfAttention(nn.Module):
             core = ring_attention_sharded(q, k, v, self.group)
         else:
             core = ulysses_attention_sharded(q, k, v, self.group)
-        return self.out(core.reshape(b, t, -1))
+        return linear(self.out, core.reshape(b, t, -1), cdt)
 
 
 class TransformerBlock(nn.Module):
     """Post-LN encoder block: x + dropout(attn) -> LN -> FFN relu -> dropout -> LN."""
 
     def __init__(self, embed_dim: int, num_heads: int, ff_dim: int, rate: float = 0.1,
-                 attention_impl: str = "dense", sp_group=None):
+                 attention_impl: str = "dense", sp_group=None, compute_dtype: DtypeLike = None):
         super().__init__()
         self.rate = rate
+        self.compute_dtype = as_compute_dtype(compute_dtype)
         # Keras MultiHeadAttention(key_dim=embed_dim): per-head dim embed_dim.
-        self.attention = SelfAttention(embed_dim, num_heads, embed_dim, attention_impl, sp_group)
+        self.attention = SelfAttention(embed_dim, num_heads, embed_dim, attention_impl, sp_group,
+                                       compute_dtype)
         self.norm1 = FlaxLayerNorm(embed_dim)
         self.ffn1 = nn.Linear(embed_dim, ff_dim)
         self.ffn2 = nn.Linear(ff_dim, embed_dim)
@@ -143,8 +174,9 @@ class TransformerBlock(nn.Module):
         """The block after its attention output ``attn``."""
         if train:
             attn = dropout(attn, self.rate, generator)
+        cdt = self.compute_dtype
         out1 = self.norm1(x + attn)
-        ffn = self.ffn2(F.relu(self.ffn1(out1)))
+        ffn = linear(self.ffn2, F.relu(linear(self.ffn1, out1, cdt)), cdt)
         if train:
             ffn = dropout(ffn, self.rate, generator)
         return self.norm2(out1 + ffn)
@@ -171,13 +203,15 @@ class ImdbTransformer(nn.Module):
         dropout_rate: float = 0.1,
         attention_impl: str = "dense",
         sp_group=None,
+        compute_dtype: DtypeLike = None,
     ):
         super().__init__()
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
-        self.embedding = TokenAndPositionEmbedding(maxlen, vocab_size, embed_dim)
+        self.compute_dtype = as_compute_dtype(compute_dtype)
+        self.embedding = TokenAndPositionEmbedding(maxlen, vocab_size, embed_dim, compute_dtype)
         self.block = TransformerBlock(embed_dim, num_heads, ff_dim, dropout_rate,
-                                      attention_impl, sp_group)
+                                      attention_impl, sp_group, compute_dtype)
         self.dense1 = nn.Linear(embed_dim, 20)
         self.dense2 = nn.Linear(20, num_classes)
 
@@ -195,23 +229,28 @@ class ImdbTransformer(nn.Module):
         """``(probs, taps)`` from ``vote_prefix``'s output."""
         if train and generator is None:
             raise ValueError("train=True needs an explicit torch.Generator")
+        cdt = self.compute_dtype
         emb, attn = prefix
-        taps: Dict[int, torch.Tensor] = {1: emb}
+        taps: Dict[int, torch.Tensor] = {1: emb.float()}
         h = self.block.residual(emb, attn, train, generator)
-        taps[2] = h
-        h = h.mean(dim=1)
-        taps[3] = h
+        taps[2] = h.float()
+        # jnp.mean sums a bfloat16 array in float32 and returns bfloat16
+        h = h.mean(dim=1) if cdt is None else h.float().mean(dim=1).to(cdt)
+        taps[3] = h.float()
         if train:
             h = dropout(h, self.dropout_rate, generator)
-        taps[4] = h
-        h = F.relu(self.dense1(h))
-        taps[5] = h
+        taps[4] = h.float()
+        h = F.relu(linear(self.dense1, h, cdt))
+        taps[5] = h.float()
         if train:
             h = dropout(h, self.dropout_rate, generator)
-        taps[6] = h
-        probs = torch.softmax(self.dense2(h), dim=-1)
+        taps[6] = h.float()
+        probs = torch.softmax(linear(self.dense2, h, cdt).float(), dim=-1)
         taps[7] = probs
         return probs, taps
+
+    def extra_repr(self) -> str:
+        return repr_suffix(self.compute_dtype)
 
     def vote_probs(
         self, prefix: Tuple[torch.Tensor, torch.Tensor], generator: torch.Generator

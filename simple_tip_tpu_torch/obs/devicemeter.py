@@ -17,7 +17,9 @@ represents. Stdlib only, so the meter math runs without torch:
   device_kind) to peak FLOP/s and HBM bytes/s: a ``TIP_DEVICE_PEAKS``
   JSON env override first, then the bundled table: the H100 SXM
   (``utils/flops.CARD_PEAKS``: 3xTF32 tensor-core FLOP/s, HBM3 bytes/s)
-  and a nominal CPU core. Any other device resolves to
+  and a nominal CPU core; a cost stamped ``compute_dtype="bfloat16"`` (a
+  program of the bf16 scoring mode) resolves to the card's bf16 tensor-core
+  peak (``utils/flops.CARD_BF16_PEAKS``). Any other device resolves to
   ``analytic_only=True``: achieved FLOP/s and bytes/s are still reported,
   but MFU and the roofline verdict are withheld rather than graded
   against an assumed chip. ``grade(cost, dt_s, ...)`` turns one measured
@@ -96,6 +98,9 @@ def normalize_cost(raw) -> Optional[dict]:
         return None
     out = {}
     for key, value in raw.items():
+        if key == "compute_dtype" and isinstance(value, str):
+            out[key] = value  # the precision the program is graded against
+            continue
         name = _COST_KEY_ALIASES.get(str(key).lower())
         if name is None:
             continue
@@ -105,34 +110,42 @@ def normalize_cost(raw) -> Optional[dict]:
             continue
         if value >= 0:
             out[name] = value
-    return out or None
+    return out if any(k != "compute_dtype" for k in out) else None
 
 
-def analytic_cost(family: str, rows: int) -> dict:
+def analytic_cost(family: str, rows: int, compute_dtype: Optional[str] = None) -> dict:
     """The analytic cost of one forward over ``rows`` inputs of ``family``.
 
     ``flops`` from ``utils/flops``' forward counts (the convnets', or the
     IMDB transformer's at its registry shapes); ``bytes_accessed`` for the
-    convnets: each input read once and each f32 activation written and read
-    once (``conv_net_forward_hbm_bytes`` at 4 bytes an element). The IMDB
-    count has no bytes: its grade is by FLOPs alone.
+    convnets: each input read once and each activation written and read
+    once (``conv_net_forward_hbm_bytes`` at 4 bytes an element, 2 in the
+    bf16 scoring mode, whose cost carries ``compute_dtype`` so that it is
+    graded against the bf16 peak). The IMDB count has no bytes: its grade
+    is by FLOPs alone.
     """
     rows = int(rows)
+    bf16 = _flops.is_bf16(compute_dtype)
     if family in ("mnist", "fmnist", "cifar10"):
-        return {
+        cost = {
             "flops": float(_flops.conv_net_forward_flops(family) * rows),
             "bytes_accessed": float(
-                _flops.conv_net_forward_hbm_bytes(family, act_bytes=4, in_bytes=4)
+                _flops.conv_net_forward_hbm_bytes(family, act_bytes=2 if bf16 else 4,
+                                                  in_bytes=4)
                 * rows
             ),
         }
-    if family == "imdb":
-        return {"flops": float(_flops.transformer_forward_flops() * rows)}
-    raise ValueError(f"no analytic cost for {family!r}")
+    elif family == "imdb":
+        cost = {"flops": float(_flops.transformer_forward_flops() * rows)}
+    else:
+        raise ValueError(f"no analytic cost for {family!r}")
+    if bf16:
+        cost["compute_dtype"] = "bfloat16"
+    return cost
 
 
 def chain_cost(family: str, rows: int, taps: int, profile_bits, table_bytes: int = 0,
-               head_bytes: int = 0) -> dict:
+               head_bytes: int = 0, compute_dtype: Optional[str] = None) -> dict:
     """The analytic cost of one fused-chain dispatch over ``rows`` inputs.
 
     ``flops``: the forward's (``analytic_cost``): matmul and conv FLOPs
@@ -142,9 +155,10 @@ def chain_cost(family: str, rows: int, taps: int, profile_bits, table_bytes: int
     ``taps`` tap activations read once, each metric's packed profile of
     ``profile_bits`` bits and its score written once) and ``head_bytes``
     (the prediction and uncertainties written), plus ``table_bytes`` once
-    (the thresholds the dispatch reads).
+    (the thresholds the dispatch reads). A bf16 forward's cost carries
+    ``compute_dtype`` (``analytic_cost``).
     """
-    cost = analytic_cost(family, rows)
+    cost = analytic_cost(family, rows, compute_dtype)
     per_input = _flops.coverage_hbm_bytes(taps, profile_bits) + int(head_bytes)
     cost["bytes_accessed"] = cost.get("bytes_accessed", 0.0) + float(
         per_input * int(rows) + int(table_bytes)
@@ -191,6 +205,7 @@ def resolve_peaks(
     platform: Optional[str],
     device_kind: Optional[str],
     cores: int = 1,
+    compute_dtype: Optional[str] = None,
 ) -> dict:
     """Peak FLOP/s + HBM bytes/s for one device, or an analytic_only stub.
 
@@ -199,7 +214,8 @@ def resolve_peaks(
     platform name), then the bundled card/CPU defaults. An unrecognized
     device returns ``{"analytic_only": True}`` with no peaks — loud by
     design, so a new card gets an explicit table entry rather than a
-    silently-wrong MFU.
+    silently-wrong MFU. A bf16 ``compute_dtype`` takes a bundled card's bf16
+    tensor-core FLOP/s (``utils/flops.CARD_BF16_PEAKS``).
     """
     platform = (platform or "").lower()
     kind = (device_kind or "").lower()
@@ -212,7 +228,11 @@ def resolve_peaks(
             return entry
     for needle, *_rest in _flops.CARD_PEAKS:
         if needle in kind:
-            return dict(_BUILTIN_PEAKS[needle], analytic_only=False)
+            entry = dict(_BUILTIN_PEAKS[needle], analytic_only=False)
+            if _flops.is_bf16(compute_dtype):
+                entry["flops_per_s"], entry["label"] = _flops.peak_flops(
+                    "gpu", device_kind, compute_dtype=compute_dtype)
+            return entry
     if platform == "cpu" or "cpu" in haystack:
         entry = dict(_BUILTIN_PEAKS["cpu"], analytic_only=False)
         entry["flops_per_s"] *= max(1, int(cores))
@@ -244,9 +264,10 @@ def grade(
     ``"unknown"`` when the verdict cannot be computed. ``analytic_only``
     is True whenever the peak table did not recognize the chip.
     """
-    if peaks is None:
-        peaks = resolve_peaks(platform, device_kind, cores=cores)
     cost = cost or {}
+    if peaks is None:
+        peaks = resolve_peaks(platform, device_kind, cores=cores,
+                              compute_dtype=cost.get("compute_dtype"))
     out = {
         "flops": cost.get("flops"),
         "bytes_accessed": cost.get("bytes_accessed"),
@@ -403,8 +424,9 @@ def build_breakdown(
     e.g. ``group_chain@g4``) to ``{"cost": <normalized cost
     dict>, "dispatch_s": <seconds | quantile summary dict>}`` plus any
     extra fields (``models_per_dispatch``, ``n_dispatches``...). Each
-    entry is graded here against one shared peak resolution, so the doc
-    is self-contained for ``obs roofline`` / store / regress.
+    entry is graded here against one shared peak resolution (a bf16 cost's
+    against the card's bf16 peak), so the doc is self-contained for ``obs
+    roofline`` / store / regress.
     """
     peaks = resolve_peaks(platform, device_kind, cores=cores)
     doc = {
@@ -429,7 +451,9 @@ def build_breakdown(
             dt_s = dispatch.get("p50") or dispatch.get("mean")
         else:
             dt_s = dispatch
-        graded = grade(cost, dt_s, peaks=peaks)
+        dtype = (cost or {}).get("compute_dtype")
+        graded = grade(cost, dt_s, peaks=peaks if dtype is None else resolve_peaks(
+            platform, device_kind, cores=cores, compute_dtype=dtype))
         row = {
             "cost": cost,
             "grade": graded,

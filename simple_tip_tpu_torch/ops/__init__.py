@@ -17,6 +17,11 @@ LAUNCH_COUNTERS = {
     "flash_attention_fwd": ("simple_tip_tpu_torch.ops.flash_attention", "LAUNCHES"),
     "flash_attention_bwd_dq": ("simple_tip_tpu_torch.ops.flash_attention", "BWD_DQ_LAUNCHES"),
     "flash_attention_bwd_dkv": ("simple_tip_tpu_torch.ops.flash_attention", "BWD_DKV_LAUNCHES"),
+    # the bf16 scoring mode's kernels
+    "fused_mnist_forward_bf16": ("simple_tip_tpu_torch.ops.fused_forward", "BF16_LAUNCHES"),
+    "fused_cifar10_forward_bf16": ("simple_tip_tpu_torch.ops.fused_forward",
+                                   "CIFAR_BF16_LAUNCHES"),
+    "flash_attention_fwd_bf16": ("simple_tip_tpu_torch.ops.flash_attention", "BF16_LAUNCHES"),
 }
 
 

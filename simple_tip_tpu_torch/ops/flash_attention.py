@@ -33,6 +33,19 @@ each kernel takes its wide-head variant (``csrc/flash_attention_wide.cu``):
 blocks own 64 rows and one 128-wide slice of the output columns, contracting
 the scores over the whole head dim in chunks from shared memory.
 
+The bf16 scoring mode (the TPU kernel with bfloat16 operands) has a
+forward kernel of its own, ``csrc/flash_attention_fwd_bf16.cu`` (counter
+``BF16_LAUNCHES``), which ``flash_attention_fwd`` takes for bfloat16 q, k
+and v: the scores ``q k^T`` from bfloat16 operands summed in float32 on the
+tensor cores (``mma.sync.m16n8k16``) and then scaled; the streaming max,
+``l`` and the log-sum-exp in float32; ``p`` rounded to bfloat16 for
+``p v``, which sums in float32; the output rounded to bfloat16. Where ``p``
+is rounded depends on the running max, so the keys are folded in the TPU
+kernel's own tiles (``jax_kv_block``: Tkv padded to 128 lanes, tiles of
+at most 1024), each tile's max taken before its ``p``. Training runs
+float32, so there is no bf16 backward: ``FlashAttention.backward`` raises
+on bfloat16 tensors.
+
 ``flash_attention(q, k, v)`` is the entry point the models call: it goes
 through ``FlashAttention``, a ``torch.autograd.Function`` whose forward is
 B4 and whose backward is B5 and B6 on the card, and their plain versions on
@@ -52,11 +65,15 @@ import torch
 from simple_tip_tpu_torch import _build
 
 LAUNCHES = 0
+BF16_LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 NEG_INF = -1e30  # large-finite, as in the TPU kernel: -inf breaks the first rescale
 BLOCK_KV = 64  # key rows per tile of the plain versions (the kernels tile their own way)
 BLOCK_Q = 64  # query rows per tile of B6's plain version
+# The TPU kernel's key tiles (``_block_for``): lane-padded, at most MAX_BLOCK.
+LANE = 128
+MAX_BLOCK = 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +142,87 @@ def flash_attention_plain(
     return _unfold(acc / l[:, :, None], b, h), lse.reshape(b, h, t_q)
 
 
+def jax_kv_block(t: int) -> int:
+    """The TPU kernel's key tile for ``t`` keys (``_block_for``): the
+    smallest multiple of 128 that covers the 128-padded length in the fewest
+    tiles of at most 1024."""
+    padded = -(-t // LANE) * LANE
+    n_tiles = -(-padded // MAX_BLOCK)
+    per_tile = -(-padded // n_tiles)
+    return -(-per_tile // LANE) * LANE
+
+
+def flash_attention_bf16_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 forward in plain PyTorch, in the TPU kernel's steps.
+
+    q, k and v bfloat16 (or rounded to it); keys padded to the TPU kernel's
+    tile (``jax_kv_block``) and folded tile by tile: ``s = (q k^T) * scale``
+    summed in float32, keys at or past Tkv masked to -1e30, the running max
+    ``m``, ``alpha`` and ``l`` in float32, ``p = exp(s - m_new)`` rounded to
+    bfloat16 for ``p v`` (float32 sums). Returns ``(out [B,Tq,H,dh]`` in
+    bfloat16 (``acc / l`` rounded), ``lse [B,H,Tq]`` float32).
+    """
+    _check_shapes(q, k, v)
+    b, t_q, h, dh = q.shape
+    t_kv = k.shape[1]
+    scale = _scale(dh)
+    block = jax_kv_block(t_kv)
+    bf = torch.bfloat16
+
+    def keys(x):
+        x = _fold(x).to(bf).float()
+        pad = (-t_kv) % block
+        return torch.cat([x, x.new_zeros(x.shape[0], pad, dh)], dim=1) if pad else x
+
+    qf, kf, vf = _fold(q).to(bf).float(), keys(k), keys(v)
+    m = torch.full((b * h, t_q), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(b * h, t_q, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(b * h, t_q, dh, dtype=torch.float32, device=q.device)
+    for j0 in range(0, kf.shape[1], block):
+        s = (qf @ kf[:, j0 : j0 + block].transpose(1, 2)) * scale
+        col = j0 + torch.arange(block, device=q.device)
+        s = torch.where(col < t_kv, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=2))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, :, None])
+        l = l * alpha + p.sum(dim=2)
+        acc = acc * alpha[:, :, None] + p.to(bf).float() @ vf[:, j0 : j0 + block]
+        m = m_new
+    lse = m + torch.log(l)
+    return _unfold((acc / l[:, :, None]).to(bf), b, h), lse.reshape(b, h, t_q)
+
+
+def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    global BF16_LAUNCHES
+    _check_shapes(q, k, v)
+    index = q.get_device()
+    if not (k.get_device() == index == v.get_device() and q.dtype is k.dtype is v.dtype
+            is torch.bfloat16 and q.is_contiguous() and k.is_contiguous()
+            and v.is_contiguous()):
+        raise ValueError("the bf16 flash forward takes contiguous bfloat16 tensors on one card")
+    b, t_q, h, dh = q.shape
+    if dh % 16 or dh > 128:
+        raise ValueError(f"the bf16 flash forward takes head_dim a multiple of 16 up to 128, "
+                         f"got {dh}")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("the bf16 flash forward reads 16-byte aligned tensors")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
+    if b * h * t_q == 0:
+        return out, lse
+    err = _build.launch(
+        index, _build.library().tip_flash_attention_fwd_bf16,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, t_q, k.shape[1], h, dh, jax_kv_block(k.shape[1]), _scale(dh),
+    )
+    _build.check(err, "tip_flash_attention_fwd_bf16")
+    BF16_LAUNCHES += 1
+    return out, lse
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     # Lean on purpose: at a training step the kernel takes ~10 us, so each
     # microsecond of host work here shows in the step's time.
@@ -166,8 +264,11 @@ def flash_attention_fwd(
     """``(out [B,Tq,H,dh], lse [B,H,Tq])`` of exact attention (B4).
 
     CUDA tensors go through the kernel (or raise); CPU tensors through the
-    plain version.
+    plain version. bfloat16 q goes through the bf16 forward (out in
+    bfloat16, lse float32).
     """
+    if q.dtype == torch.bfloat16:
+        return _on(q, _launch_bf16, flash_attention_bf16_plain, q, k, v)
     return _on(q, _launch, flash_attention_plain, q, k, v)
 
 
@@ -336,6 +437,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        if q.dtype != torch.float32:
+            raise RuntimeError(
+                f"the flash backward (B5, B6) takes float32; got {q.dtype} q/k/v: the bf16 "
+                "mode scores only, training runs float32")
         dout = dout.contiguous()
         dvec = attention_delta(out, dout)
         dq = flash_bwd_dq(q, k, v, dout, lse, dvec)

@@ -23,8 +23,11 @@ counts, integer for integer.
   the NVIDIA H100 SXM (``NVIDIA H100 80GB HBM3``): HBM3 at 3.35e12 B/s and
   165e12 FLOP/s, the 3xTF32 tensor-core rate (three TF32 products a
   multiply-add: the precision kernels B1-B6 compute in), not the 67e12
-  FLOP/s f32 FMA rate. The PCIe and NVL parts have other peaks and are not
-  in the table.
+  FLOP/s f32 FMA rate. A program of the bf16 scoring mode
+  (``compute_dtype="bfloat16"``) is graded against the card's dense bf16
+  tensor-core peak instead (``CARD_BF16_PEAKS``: 989.4e12 FLOP/s for the
+  H100 SXM); a card not in that table has no bf16 peak either. The PCIe
+  and NVL parts have other peaks and are not in the table.
 - ``mfu`` — achieved / peak with the lookup applied (None without a peak).
 """
 
@@ -176,6 +179,23 @@ CARD_PEAKS = (
 )
 
 
+#: The same cards' dense bf16 tensor-core FLOP/s (NVIDIA's H100 SXM data
+#: sheet), for the bf16 scoring mode: (lowercase device-kind substring,
+#: FLOP/s, label).
+CARD_BF16_PEAKS = (
+    (
+        "h100 80gb hbm3",
+        989.4e12,
+        "NVIDIA H100 SXM bf16 dense tensor-core peak (989.4e12), HBM3 3.35e12 B/s",
+    ),
+)
+
+
+def is_bf16(compute_dtype) -> bool:
+    """Whether a compute-dtype name is the bf16 scoring mode."""
+    return str(compute_dtype or "").lower() in ("bfloat16", "bf16", "torch.bfloat16")
+
+
 def _card(device_kind: str):
     kind = (device_kind or "").lower()
     for needle, flops, hbm, label in CARD_PEAKS:
@@ -197,13 +217,21 @@ def hbm_peak_bytes(device_kind: str = ""):
 _CPU_CORE_PEAK_F32 = 96e9
 
 
-def peak_flops(platform: str, device_kind: str = "", cores: int = 1):
+def peak_flops(platform: str, device_kind: str = "", cores: int = 1, compute_dtype=None):
     """(peak_flop_per_sec, label) for one card or ``cores`` CPU cores;
-    (None, label) for a device kind that is not in ``CARD_PEAKS``."""
+    (None, label) for a device kind that is not in ``CARD_PEAKS``. With a
+    bf16 ``compute_dtype`` a card's peak is its bf16 one
+    (``CARD_BF16_PEAKS``), and None for a card not in that table."""
     if platform == "cpu":
         return _CPU_CORE_PEAK_F32 * max(1, cores), (
             f"nominal {max(1, cores)}-core x86 f32 peak (2 FMA x 8 lanes x 3GHz/core)"
         )
+    if is_bf16(compute_dtype):
+        kind = (device_kind or "").lower()
+        for needle, flops, label in CARD_BF16_PEAKS:
+            if needle in kind:
+                return flops, label
+        return None, f"no bf16 FLOP/s peak: device kind {device_kind!r} is not in the table"
     card = _card(device_kind)
     if card is not None:
         return card[0], card[2]
@@ -215,10 +243,11 @@ def mfu(
     platform: str,
     device_kind: str = "",
     cores: int = 1,
+    compute_dtype=None,
 ) -> Tuple[float, float, str]:
     """(mfu, peak, peak_label); mfu = achieved / nominal peak, and
     (None, None, label) when the device has no peak in the table."""
-    peak, label = peak_flops(platform, device_kind, cores)
+    peak, label = peak_flops(platform, device_kind, cores, compute_dtype)
     if peak is None:
         return None, None, label
     return achieved_flops_per_sec / peak, peak, label

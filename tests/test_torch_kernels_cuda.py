@@ -372,3 +372,136 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     without_fragments = {k: v for k, v in cifar.items() if not k.endswith("_tc")}
     with pytest.raises(ValueError):
         fused_forward.fused_cifar10_probs(without_fragments, torch.zeros(2, 32, 32, 3, device=cuda_device))
+
+
+# -- the bf16 scoring mode: B1, B3 and B4 in bf16 -----------------------------------
+#
+# The bf16 kernels round activations to bfloat16 where the TPU kernels do, so a
+# float32 sum taken in another order than the plain version's can flip one
+# rounding: a flipped activation moved a probability by at most 1.1e-4 over
+# 10,000 CIFAR-10 images on an H100 (1.5e-5 for MNIST; initialised weights, as
+# here), hence BF16_FUSED_ATOL. B4's p is rounded to bfloat16 too, so one
+# flipped p moves every output of its query row by up to 2^-8 p |v| / l;
+# outputs are held within one bfloat16 ulp at the output's largest magnitude,
+# their mean |difference| within BF16_MEAN_ULPS of that ulp, lse (float32)
+# within 1e-5.
+BF16_FUSED_ATOL = 5e-4
+BF16_MODULE_ATOL = 5e-3  # the JAX package's gate for a fused forward against its module
+BF16_MEAN_ULPS = 1 / 64
+BF16_FUSED = {
+    "mnist": ((28, 28, 1), fused_forward.fused_mnist_probs_bf16,
+              fused_forward.fused_mnist_probs_bf16_plain, "BF16_LAUNCHES"),
+    "cifar10": ((32, 32, 3), fused_forward.fused_cifar10_probs_bf16,
+                fused_forward.fused_cifar10_probs_bf16_plain, "CIFAR_BF16_LAUNCHES"),
+}
+BF16_FLASH_SHAPES = [  # (q shape, Tkv): IMDB's, ragged T, several key tiles, wider heads
+    ((4, 100, 2, 32), 100), ((3, 37, 2, 32), 53), ((2, 130, 2, 32), 70),
+    ((1, 1100, 1, 16), 1100), ((2, 200, 2, 64), 200), ((2, 150, 1, 128), 150),
+]
+
+
+def _bf16_ulp(x: torch.Tensor) -> float:
+    """One bfloat16 ulp at |x|'s largest magnitude."""
+    return float(2.0 ** (np.floor(np.log2(float(x.float().abs().max()))) - 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,batch", [
+    ("mnist", 1), ("mnist", 7), ("mnist", 9), ("mnist", 1001),  # tiles of 8 images
+    ("cifar10", 1), ("cifar10", 5), ("cifar10", 1003),  # tiles of 4
+])
+def test_bf16_fused_forward_kernels_match_plain(cuda_device, family, batch):
+    from simple_tip_tpu_torch.models import Cifar10ConvNet, MnistConvNet
+
+    shape, kernel, plain, counter = BF16_FUSED[family]
+    bridged = params_from_jax(glorot_params(5, family))
+    fused = {k: v.to(cuda_device) for k, v in bridged["fused"].items()}
+    net = {"mnist": MnistConvNet, "cifar10": Cifar10ConvNet}[family](compute_dtype="bfloat16")
+    net = net.to(cuda_device).eval()
+    net.load_state_dict(bridged["module"])
+    x = np.random.default_rng(batch).uniform(0, 1, size=(batch,) + shape).astype(np.float32)
+    x = torch.from_numpy(x).to(cuda_device)
+    before = getattr(fused_forward, counter)
+    got = kernel(fused, x)
+    torch.cuda.synchronize()
+    assert getattr(fused_forward, counter) == before + 1
+    want = plain(fused, x)
+    assert float((got - want).abs().max()) <= BF16_FUSED_ATOL
+    with torch.no_grad():
+        assert float((got - net(x)[0]).abs().max()) <= BF16_MODULE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,t_kv", BF16_FLASH_SHAPES)
+def test_bf16_flash_forward_matches_plain(cuda_device, shape, t_kv):
+    rng = np.random.default_rng(t_kv)
+    b, _, h, dh = shape
+    q = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, t_kv, h, dh)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device).to(torch.bfloat16) for t in (q, k, v))
+    before = fa.BF16_LAUNCHES, fa.LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.BF16_LAUNCHES, fa.LAUNCHES) == (before[0] + 1, before[1])
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want, want_lse = fa.flash_attention_bf16_plain(q, k, v)
+    diff = (out.float() - want.float()).abs()
+    assert float(diff.max()) <= _bf16_ulp(want)
+    assert float(diff.mean()) <= BF16_MEAN_ULPS * _bf16_ulp(want)
+    assert float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_bf16_cuda_tensors_never_reach_a_plain_version(cuda_device, monkeypatch):
+    from simple_tip_tpu_torch.models import ImdbTransformer, MnistConvNet
+    from simple_tip_tpu_torch.models.predict import predict
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("fused_mnist_probs_bf16_plain", "fused_cifar10_probs_bf16_plain",
+                 "fused_mnist_probs_plain", "fused_cifar10_probs_plain"):
+        monkeypatch.setattr(fused_forward, name, refuse)
+    for name in ("flash_attention_bf16_plain", "flash_attention_plain"):
+        monkeypatch.setattr(fa, name, refuse)
+    rng = np.random.default_rng(0)
+    mnist = params_from_jax(glorot_params(1))
+    net = MnistConvNet(compute_dtype="bfloat16").to(cuda_device).eval()
+    net.load_state_dict(mnist["module"])
+    fused = {k: v.to(cuda_device) for k, v in mnist["fused"].items()}
+    before = fused_forward.BF16_LAUNCHES, fused_forward.LAUNCHES
+    predict(net, fused, rng.uniform(0, 1, (20, 28, 28, 1)).astype(np.float32), cuda_device)
+    assert (fused_forward.BF16_LAUNCHES, fused_forward.LAUNCHES) == (before[0] + 1, before[1])
+    cifar = {k: v.to(cuda_device)
+             for k, v in params_from_jax(glorot_params(1, "cifar10"))["fused"].items()}
+    before = fused_forward.CIFAR_BF16_LAUNCHES
+    fused_forward.fused_cifar10_probs_bf16(cifar, torch.rand(6, 32, 32, 3, device=cuda_device))
+    assert fused_forward.CIFAR_BF16_LAUNCHES == before + 1
+    imdb = params_from_jax(glorot_params(1, "imdb"))
+    net = ImdbTransformer(compute_dtype="bfloat16").to(cuda_device).eval()
+    net.load_state_dict(imdb["module"])
+    before = fa.BF16_LAUNCHES, fa.LAUNCHES
+    probs = predict(net, {}, rng.integers(0, 2000, (9, 100)), cuda_device)
+    torch.cuda.synchronize()
+    assert probs.dtype == torch.float32 and probs.shape == (9, 2)
+    assert (fa.BF16_LAUNCHES, fa.LAUNCHES) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(2, 10, 2, 24, dtype=torch.bfloat16, device=cuda_device)  # dh not 16k
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros(2, 10, 2, 32, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(q, q.float(), q)
+    q.requires_grad_(True)
+    out = fa.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="float32"):
+        out.float().sum().backward()
+    mnist = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(0))["fused"].items()}
+    without_fragments = {k: v for k, v in mnist.items() if not k.endswith("_bf")}
+    with pytest.raises(ValueError):
+        fused_forward.fused_mnist_probs_bf16(without_fragments,
+                                             torch.zeros(2, 28, 28, 1, device=cuda_device))
