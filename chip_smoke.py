@@ -330,7 +330,9 @@ CIFAR-10's first 10,000 training images against their plain versions
 (``BF16_FUSED_MAX``, ``_MEAN``, ``_ROWS``), the float32 kernel and the bf16 module (cuDNN bf16;
 ``BF16_MODE_MAX``, ``BF16_MODE_MEAN``, ``BF16_ARGMAX_SHARE`` on these
 trained weights), B4 on the bf16 q/k/v of an IMDB bf16 forward over
-one prediction batch and on a ragged [3, 37, 2, 32] x Tkv 53 (outputs within
+one prediction batch and on a ragged [3, 37, 2, 32] x Tkv 53 (its one-tile
+route) and on [2, 200, 2, 64] (its two-pass route), each shape's route
+counter moved (outputs within
 one bf16 ulp at their largest magnitude, their mean within
 ``BF16_MEAN_ULPS`` of it, lse within 1e-5), each timed eager and from a CUDA graph beside its
 plain version and its library yardstick (the bf16 module forward; SDPA on
@@ -1244,8 +1246,8 @@ def check_fused_forward(params, x_test: np.ndarray, dev) -> dict:
     fused = {k: v.to(dev) for k, v in params["fused"].items()}
     x = torch.from_numpy(x_test).to(dev)
     b = x.shape[0]
-    # conv1 at all 26x26 positions, conv2 at the 10x10 the floor pool keeps
-    work = [(b * 2 * 26 * 26 * 32 * 9, "f32"), (b * 2 * 10 * 10 * 64 * 288, "3xtf32"),
+    # the positions the floor pool 11->5 needs: conv2 10x10, so conv1 24x24
+    work = [(b * 2 * 24 * 24 * 32 * 9, "f32"), (b * 2 * 10 * 10 * 64 * 288, "3xtf32"),
             (b * 2 * 1600 * 10, "f32")]
     return _fused_record("fused_mnist_forward", fused_forward.fused_mnist_probs,
                          fused_forward.fused_mnist_probs_plain, _module("mnist", params, dev),
@@ -1258,8 +1260,8 @@ def check_cifar10_forward(params, x_test: np.ndarray, dev) -> dict:
     fused = {k: v.to(dev) for k, v in params["fused"].items()}
     x = torch.from_numpy(x_test).to(dev)
     b = x.shape[0]
-    # the convs at the positions the pools keep: conv1 30x30, conv2 12x12, conv3 4x4
-    convs = 30 * 30 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576
+    # the positions the floor pools need: conv3 4x4, conv2 12x12, so conv1 28x28
+    convs = 28 * 28 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576
     work = [(b * 2 * convs, "3xtf32"), (b * 2 * (1024 * 64 + 64 * 10), "f32")]
     return _fused_record("fused_cifar10_forward", fused_forward.fused_cifar10_probs,
                          fused_forward.fused_cifar10_probs_plain, _module("cifar10", params, dev),
@@ -4278,12 +4280,12 @@ def check_fused_forward_bf16(family: str, params, x_np: np.ndarray, dev) -> dict
         plain_ms = cuda_ms(lambda: plain(fused, x), 3)
         library_ms = cuda_ms(lambda: net(x), 20)
     b = x.shape[0]
-    if family == "mnist":  # conv1 at all 26x26 positions, conv2 at the 10x10 the pool keeps
-        work = [(b * 2 * 26 * 26 * 32 * 9, "f32"), (b * 2 * 10 * 10 * 64 * 288, "bf16"),
+    if family == "mnist":  # conv2 at the 10x10 the floor pool needs, so conv1 at 24x24
+        work = [(b * 2 * 24 * 24 * 32 * 9, "f32"), (b * 2 * 10 * 10 * 64 * 288, "bf16"),
                 (b * 2 * 1600 * 10, "f32")]
         weights = ("w1", "b1", "b2", "wd", "bd")
-    else:  # the convs at the positions the pools keep: 30x30, 12x12, 4x4
-        work = [(b * 2 * (30 * 30 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576), "bf16"),
+    else:  # the convs at the positions the floor pools need: 28x28, 12x12, 4x4
+        work = [(b * 2 * (28 * 28 * 32 * 27 + 12 * 12 * 64 * 288 + 4 * 4 * 64 * 576), "bf16"),
                 (b * 2 * (1024 * 64 + 64 * 10), "f32")]
         weights = ("b1", "b2", "b3", "wd1", "bd1", "wd2", "bd2")
     # images read and probabilities written once, the weights the kernel reads once
@@ -4321,9 +4323,18 @@ def _bf16_close(got, want, lse, want_lse, what: str) -> tuple:
     return float(diff.max()), apart
 
 
+def bf16_route_counts() -> dict:
+    """The bf16 flash forward's launches by route (not in COUNTERS, which
+    count kernels: these split one kernel's launches)."""
+    tile = flash_attention.BF16_TILE_LAUNCHES
+    return {"tile": tile, "two_pass": flash_attention.BF16_LAUNCHES - tile}
+
+
 def check_flash_attention_bf16(params, tokens: np.ndarray, dev, seed: int) -> dict:
     """B4 in bf16 against its plain version: the bf16 q/k/v of a real IMDB
-    bf16 forward over one prediction batch (timed), and a ragged shape."""
+    bf16 forward over one prediction batch (timed) and a ragged shape on
+    the one-tile route, a shape of the two-pass route; each shape's route
+    counter must move by one."""
     net = _bf16_net("imdb", params, dev)
     attn = net.block.attention
     with torch.no_grad():
@@ -4332,15 +4343,29 @@ def check_flash_attention_bf16(params, tokens: np.ndarray, dev, seed: int) -> di
         q, k, v = (F.linear(emb, p.weight.bfloat16()).add(p.bias.bfloat16()).reshape(
             b, t, attn.num_heads, attn.head_dim) for p in (attn.query, attn.key, attn.value))
     rng = np.random.default_rng(seed)
-    ragged = [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).bfloat16()
-              for shape in ((3, 37, 2, 32), (3, 53, 2, 32), (3, 53, 2, 32))]
-    err, apart = 0.0, {}
-    for name, (qq, kk, vv) in (("imdb", (q, k, v)), ("ragged", ragged)):
+
+    def normal(*shapes):
+        return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).bfloat16()
+                for shape in shapes]
+
+    cases = (("imdb", (q, k, v)),
+             ("ragged", normal((3, 37, 2, 32), (3, 53, 2, 32), (3, 53, 2, 32))),
+             ("two_pass", normal(*[(2, 200, 2, 64)] * 3)))
+    err, apart, routes = 0.0, {}, {}
+    for name, (qq, kk, vv) in cases:
+        before = bf16_route_counts()
         out, lse = flash_attention.flash_attention_fwd(qq, kk, vv)
         want_out, want_lse = flash_attention.flash_attention_bf16_plain(qq, kk, vv)
         torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in bf16_route_counts().items()}
+        routes[name] = flash_attention.bf16_route(qq.shape[1], kk.shape[1], qq.shape[3])
+        if dev.type == "cuda" and moved != {r: int(r == routes[name]) for r in moved}:
+            raise AssertionError(f"bf16 flash attention {name}: route counters moved {moved}, "
+                                 f"want one {routes[name]} launch")
         e, apart[name] = _bf16_close(out, want_out, lse, want_lse, name)
         err = max(err, e)
+    if routes["two_pass"] != "two_pass" or routes["imdb"] != "tile":
+        raise AssertionError(f"bf16 flash attention routes {routes}: both must be held")
     h, dh = attn.num_heads, attn.head_dim
     qh, kh, vh = (x.permute(0, 2, 1, 3).contiguous() for x in (q, k, v))
 
@@ -4364,7 +4389,7 @@ def check_flash_attention_bf16(params, tokens: np.ndarray, dev, seed: int) -> di
         "replaces": "simple_tip_tpu/ops/flash_attention.py:58",
         "timed": f"one launch at one prediction batch, bf16 q/k/v [{b}, {t}, {h}, {dh}]; "
                  "library: scaled_dot_product_attention on bf16",
-        "max_abs_err": err, "outputs_apart": apart,
+        "max_abs_err": err, "outputs_apart": apart, "routes": routes,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
         "bound_unit": UNITS["bf16"][1], "library_ms": library_ms, "device_ms": device,
     }
@@ -4414,11 +4439,13 @@ def run_bf16_path(family: str, root: str, data, dev, f32_apfd: dict,
         clear_loaders()
     with patched_env(env):
         zero_counters()
+        routes0 = bf16_route_counts()
         t0 = time.perf_counter()
         [(phases, _)] = run_cli("--phase", "test_prio", "--case-study", family, "--runs", "0",
                                 *device_args(dev)).values()
         seconds = time.perf_counter() - t0
         launches = read_counters()
+        routes = {r: n - routes0[r] for r, n in bf16_route_counts().items()}
         art, _ = read_artifacts(family, {"nominal": len(data[1][1]), "ood": len(data[2][1])})
     if data_dir:
         clear_loaders()
@@ -4427,9 +4454,15 @@ def run_bf16_path(family: str, root: str, data, dev, f32_apfd: dict,
         faults += [f"{name} was not launched" for name in cfg["kernels"] if launches[name] <= 0]
         faults += [f"the float32 {name} was launched {launches[name]} times"
                    for name in cfg["not_launched"] if launches[name]]
+        b4 = launches["flash_attention_fwd_bf16"]
+        if "flash_attention_fwd_bf16" in cfg["kernels"] and (
+                routes["tile"] <= 0 or sum(routes.values()) != b4):
+            faults.append(f"the bf16 flash forward's routes {routes} do not make its {b4} "
+                          "launches, or skip the tile route")
     apfd = apfd_report(art)
     record = {"bf16_path": family, "fused_chain": cfg["fused_chain"], "slice_s": seconds,
-              "phases_s": phases, "launches": launches, "apfd": apfd, "f32_apfd": f32_apfd,
+              "phases_s": phases, "launches": launches, "b4_bf16_routes": routes,
+              "apfd": apfd, "f32_apfd": f32_apfd,
               "rows": {"nominal": len(data[1][1]), "ood": len(data[2][1])}}
     print(json.dumps(record))
     if faults:
@@ -4975,6 +5008,8 @@ def main() -> int:
     kernels.insert(1, b2)
     for k, family in zip(bf16["kernels"], ("mnist", "cifar10", "imdb")):
         k["launches"] = bf16["runs"][family]["launches"][k["name"]]
+        if family == "imdb":
+            k["route_launches"] = bf16["runs"][family]["b4_bf16_routes"]
         if family == "cifar10":
             k["launches_on"] = f"CIFAR-10 run 0 on {PATH_CUTS['cifar10']} of its rows"
         kernels.append(k)

@@ -124,6 +124,8 @@ def library() -> ctypes.CDLL:
     lib.tip_cifar10_forward.argtypes = [p] * 12 + [i, i, p]
     lib.tip_mnist_forward_bf16.restype = i
     lib.tip_mnist_forward_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+    lib.tip_bf16_products.restype = i
+    lib.tip_bf16_products.argtypes = [p, p, p, i, p]
     lib.tip_cifar10_forward_bf16.restype = i
     lib.tip_cifar10_forward_bf16.argtypes = [p] * 12 + [i, i, p]
     lib.tip_dsa_nearest.restype = i
@@ -134,6 +136,8 @@ def library() -> ctypes.CDLL:
     lib.tip_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
     lib.tip_flash_attention_fwd_bf16.restype = i
     lib.tip_flash_attention_fwd_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
+    lib.tip_flash_attention_fwd_bf16_tile.restype = i
+    lib.tip_flash_attention_fwd_bf16_tile.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
     lib.tip_flash_attention_bwd_dq.restype = i
     lib.tip_flash_attention_bwd_dq.argtypes = [p] * 7 + [i, i, i, i, i, f, p]
     lib.tip_flash_attention_bwd_dkv.restype = i

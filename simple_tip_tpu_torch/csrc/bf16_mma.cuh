@@ -1,7 +1,9 @@
 // Helpers shared by the bf16 scoring mode's kernels (B1 and B3 bf16 fused
-// forwards, B4 bf16 forward): rounding to bfloat16, ldmatrix of bf16 tiles,
-// and the product on the tensor cores, mma.sync.m16n8k16 with bfloat16
-// operands and float32 accumulators.
+// forwards, B4 bf16 forward): rounding to bfloat16, the correctly rounded
+// bf16 product, ldmatrix of bf16 tiles, the product on the tensor cores
+// (mma.sync.m16n8k16 with bfloat16 operands and float32 accumulators),
+// cp.async copies, named barriers, and the shared-memory attribute set once
+// a device.
 //
 // Fragment layouts of m16n8k16 bf16 (g = lane / 4, t = lane % 4; a register
 // holds two bf16, the lower k index in its low half):
@@ -21,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 // x rounded to bfloat16 to nearest even, as its 16 bits / as a float.
@@ -30,9 +34,58 @@ __device__ __forceinline__ uint32_t bf16_bits(float x) {
 __device__ __forceinline__ float bf16_round(float x) {
   return __uint_as_float(bf16_bits(x) << 16);
 }
-// Two floats rounded to bfloat16 in one register, lo in the low half.
+// Two floats rounded to bfloat16 (to nearest even) in one register, lo in
+// the low half: one cvt.rn.bf16x2.f32.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The product of two bfloat16 values held as floats (their low 16 bits
+// zero), rounded once to bfloat16 and returned as a float: one
+// mul.rn.bf16x2 whose low halves multiply 0 by 0. The float32 product of two
+// bfloat16 values is exact wherever it is a normal float32, so there this is
+// bf16_round(a * b) in one instruction and no conversion.
+__device__ __forceinline__ float bf16_product(float a, float b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(__float_as_uint(a)), "r"(__float_as_uint(b)));
+  return __uint_as_float(r);
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// pred false zero-fills them (src-size 0: nothing is read).
+__device__ __forceinline__ void async_copy16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void async_wait_all() { asm volatile("cp.async.wait_all;\n"); }
+
+// Named barrier `id` (1-15) over `count` threads: bar_sync waits, bar_arrive
+// counts this thread in and goes on (a producer's signal; its earlier
+// writes are visible to the threads that wait).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) on the
+// current device unless `done` says it was set there already (one bit a
+// device; a launch's own smem may be anything up to `bytes`).
+template <typename Kernel>
+cudaError_t max_dynamic_smem_once(Kernel kernel, int bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
 }
 
 // c += a.b on the tensor cores: bf16 operands, float32 accumulators.

@@ -115,6 +115,7 @@ BF16_KERNEL_COUNTERS = (
     (fused_forward, "BF16_LAUNCHES"),
     (fused_forward, "CIFAR_BF16_LAUNCHES"),
     (flash_attention, "BF16_LAUNCHES"),
+    (flash_attention, "BF16_TILE_LAUNCHES"),
 )
 #: Every counter a program records (``Program.recorded``, in this order).
 PROGRAM_COUNTERS = KERNEL_COUNTERS + BF16_KERNEL_COUNTERS

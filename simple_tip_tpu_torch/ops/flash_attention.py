@@ -42,7 +42,14 @@ tensor cores (``mma.sync.m16n8k16``) and then scaled; the streaming max,
 ``p v``, which sums in float32; the output rounded to bfloat16. Where ``p``
 is rounded depends on the running max, so the keys are folded in the TPU
 kernel's own tiles (``jax_kv_block``: Tkv padded to 128 lanes, tiles of
-at most 1024), each tile's max taken before its ``p``. Training runs
+at most 1024), each tile's max taken before its ``p``. ``bf16_route``
+picks one of its two routes from (Tq, Tkv, head_dim): ``"tile"`` where
+Tq and Tkv are at most ``TILE_KEYS`` (all keys one TPU tile) at a head
+dim of ``TILE_HEAD_DIMS`` (IMDB's [B, 100, 2, 32] among them; persistent
+blocks read each (batch, head) slab once and keep the scores in
+registers), ``"two_pass"`` otherwise (each TPU tile walked twice in
+sub-tiles of 64 keys). ``BF16_LAUNCHES`` counts both routes,
+``BF16_TILE_LAUNCHES`` the one-tile route's. Training runs
 float32, so there is no bf16 backward: ``FlashAttention.backward`` raises
 on bfloat16 tensors.
 
@@ -65,7 +72,8 @@ import torch
 from simple_tip_tpu_torch import _build
 
 LAUNCHES = 0
-BF16_LAUNCHES = 0
+BF16_LAUNCHES = 0  # both routes of the bf16 forward
+BF16_TILE_LAUNCHES = 0  # its one-tile route
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 NEG_INF = -1e30  # large-finite, as in the TPU kernel: -inf breaks the first rescale
@@ -74,6 +82,11 @@ BLOCK_Q = 64  # query rows per tile of B6's plain version
 # The TPU kernel's key tiles (``_block_for``): lane-padded, at most MAX_BLOCK.
 LANE = 128
 MAX_BLOCK = 1024
+# The bf16 forward's one-tile route: Tq and Tkv at most TILE_KEYS (all keys
+# in one TPU tile; the kernel's kTileKeys) at the head dims its kernel is
+# built for (the cases of tip_flash_attention_fwd_bf16_tile).
+TILE_KEYS = 128
+TILE_HEAD_DIMS = (16, 32, 64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,8 +207,17 @@ def flash_attention_bf16_plain(
     return _unfold((acc / l[:, :, None]).to(bf), b, h), lse.reshape(b, h, t_q)
 
 
+def bf16_route(t_q: int, t_kv: int, dh: int) -> str:
+    """The bf16 forward's route for these shapes: ``"tile"`` where the TPU
+    kernel folds every key in one tile of at most TILE_KEYS, Tq is at most
+    TILE_KEYS too and ``dh`` is one of TILE_HEAD_DIMS, else ``"two_pass"``."""
+    if jax_kv_block(t_kv) <= TILE_KEYS and t_q <= TILE_KEYS and dh in TILE_HEAD_DIMS:
+        return "tile"
+    return "two_pass"
+
+
 def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    global BF16_LAUNCHES
+    global BF16_LAUNCHES, BF16_TILE_LAUNCHES
     _check_shapes(q, k, v)
     index = q.get_device()
     if not (k.get_device() == index == v.get_device() and q.dtype is k.dtype is v.dtype
@@ -213,12 +235,17 @@ def _launch_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     lse = torch.empty((b, h, t_q), dtype=torch.float32, device=q.device)
     if b * h * t_q == 0:
         return out, lse
-    err = _build.launch(
-        index, _build.library().tip_flash_attention_fwd_bf16,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, t_q, k.shape[1], h, dh, jax_kv_block(k.shape[1]), _scale(dh),
-    )
-    _build.check(err, "tip_flash_attention_fwd_bf16")
+    t_kv = k.shape[1]
+    lib = _build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, t_q, t_kv, h, dh)
+    if bf16_route(t_q, t_kv, dh) == "tile":
+        _build.check(_build.launch(index, lib.tip_flash_attention_fwd_bf16_tile, *args,
+                                   _scale(dh)), "tip_flash_attention_fwd_bf16_tile")
+        BF16_TILE_LAUNCHES += 1
+    else:
+        _build.check(_build.launch(index, lib.tip_flash_attention_fwd_bf16, *args,
+                                   jax_kv_block(t_kv), _scale(dh)), "tip_flash_attention_fwd_bf16")
     BF16_LAUNCHES += 1
     return out, lse
 

@@ -35,7 +35,10 @@ sums in float32 on the tensor cores (``mma.sync.m16n8k16`` bf16, weights
 from ``bf16_fragments``) or on the FMAs; biases, relu, pools and softmax in
 float32, each activation rounded to bfloat16 where the TPU kernel casts it.
 MNIST's conv1 rounds each product ``x * w1`` to bfloat16 before its float32
-sum, as the TPU kernel's bf16 multiply does.
+sum, as the TPU kernel's bf16 multiply does: on the card one
+``mul.rn.bf16x2`` a product, which equals the float32 product rounded
+wherever that product is a normal float32 (``_bf16_products``, a hook for
+the tests, forms it alone).
 """
 
 from typing import Dict
@@ -53,7 +56,7 @@ CIFAR_BF16_LAUNCHES = 0
 _BLOCKS_PER_SM = 1
 _MNIST_TILE = 5  # images per pass of the MNIST kernel
 _CIFAR_TILE = 4  # images per pass of the CIFAR-10 kernel
-_MNIST_BF16_TILE = 8  # images per pass of the bf16 kernels
+_MNIST_BF16_TILE = 4  # images per pass of the bf16 kernels
 _CIFAR_BF16_TILE = 4
 # The kernels' operands: weights the tensor cores multiply as TF32 fragments
 # (``*_tc``, from the bridge), the rest as the plain versions read them.
@@ -376,3 +379,26 @@ def fused_cifar10_probs_bf16(fused: Dict[str, torch.Tensor], x: torch.Tensor) ->
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return fused_cifar10_probs_bf16_plain(fused, x)
+
+
+def _bf16_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """MNIST's bf16 conv1 product alone, elementwise: ``a`` and ``b``
+    (float32, one shape) rounded to bfloat16 and their product rounded to
+    bfloat16, as float32. On the card the kernel's own instruction
+    (``mul.rn.bf16x2``, one rounding of the exact product); on the CPU the
+    plain version's float32 product rounded, which is the same wherever
+    that product is a normal float32 (below 2**-126 the float32 product
+    rounds first, so the two may differ by a bf16 ulp of a subnormal)."""
+    if a.shape != b.shape or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError("_bf16_products takes two float32 tensors of one shape")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return _bf(_bf(a) * _bf(b))
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError(f"_bf16_products takes tensors on one device, got {a.device}, {b.device}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    if a.numel():
+        err = _build.launch(a.get_device(), _build.library().tip_bf16_products,
+                            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel())
+        _build.check(err, "tip_bf16_products")
+    return out

@@ -505,3 +505,91 @@ def test_bf16_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         fused_forward.fused_mnist_probs_bf16(without_fragments,
                                              torch.zeros(2, 28, 28, 1, device=cuda_device))
+
+
+# -- the bf16 kernels' Hopper redesign: B4's two routes, B1's batches and scales --------
+#
+# B4 in bf16 takes its one-tile route (persistent blocks, scores in registers)
+# up to Tq and Tkv 128 at head dims 16, 32 and 64, and its two-pass route at
+# the other shapes (ops.flash_attention.bf16_route); each is held to the
+# plain version as above, across the edge, at a batch that is no multiple of
+# the persistent grid, with one and four heads, and at head dims outside
+# the one-tile route. B1 in
+# bf16 forms conv1's products with mul.rn.bf16x2: held at ragged batches, over
+# more images than one pass of the grid, on inputs scaled far down and up,
+# and its product alone against the correctly rounded product.
+BF16_ROUTE_SHAPES = [  # (q shape, Tkv, route)
+    ((4, 128, 2, 32), 128, "tile"), ((4, 129, 2, 32), 129, "two_pass"),
+    ((1001, 100, 2, 32), 100, "tile"), ((3, 100, 1, 32), 100, "tile"),
+    ((3, 100, 4, 32), 100, "tile"), ((5, 100, 4, 64), 100, "tile"),
+    ((3, 77, 2, 16), 77, "tile"), ((2, 100, 2, 48), 100, "two_pass"),
+    ((3, 128, 2, 128), 128, "two_pass"),
+]
+
+
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """float64 ``x`` correctly rounded to bfloat16 (to nearest even, with
+    bfloat16's subnormals, spacing 2**-133 below 2**-126)."""
+    ulp = np.exp2(np.maximum(np.frexp(np.abs(x))[1] - 1, -126) - 7.0)
+    return np.where(x == 0, x, np.rint(x / ulp) * ulp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,t_kv,route", BF16_ROUTE_SHAPES)
+def test_bf16_flash_forward_routes_match_plain(cuda_device, shape, t_kv, route):
+    rng = np.random.default_rng(shape[0] * 1000 + t_kv)
+    b, t_q, h, dh = shape
+    q = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(b, t_kv, h, dh)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device).to(torch.bfloat16) for t in (q, k, v))
+    assert fa.bf16_route(t_q, t_kv, dh) == route
+    before = fa.BF16_LAUNCHES, fa.BF16_TILE_LAUNCHES
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    moved = (fa.BF16_LAUNCHES - before[0], fa.BF16_TILE_LAUNCHES - before[1])
+    assert moved == ((1, 1) if route == "tile" else (1, 0))
+    want, want_lse = fa.flash_attention_bf16_plain(q, k, v)
+    diff = (out.float() - want.float()).abs()
+    assert float(diff.max()) <= _bf16_ulp(want)
+    assert float(diff.mean()) <= BF16_MEAN_ULPS * _bf16_ulp(want)
+    assert float(((lse - want_lse).abs() - 1e-5 * want_lse.abs()).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,scale", [
+    (1, 1.0), (7, 1.0), (9, 1.0), (1001, 1.0), (10003, 1.0),  # tiles of 4 images
+    (300, 2.0 ** -60), (300, 2.0 ** 60),
+])
+def test_bf16_mnist_forward_batches_and_scales(cuda_device, batch, scale):
+    fused = {k: v.to(cuda_device) for k, v in params_from_jax(glorot_params(7))["fused"].items()}
+    x = np.random.default_rng(batch).uniform(0, 1, size=(batch, 28, 28, 1)) * scale
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    before = fused_forward.BF16_LAUNCHES
+    got = fused_forward.fused_mnist_probs_bf16(fused, x)
+    torch.cuda.synchronize()
+    assert fused_forward.BF16_LAUNCHES == before + 1
+    want = fused_forward.fused_mnist_probs_bf16_plain(fused, x)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= BF16_FUSED_ATOL
+
+
+@pytest.mark.cuda
+def test_bf16_conv1_product_is_the_correctly_rounded_product(cuda_device):
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    w1 = params_from_jax(glorot_params(0))["fused"]["w1"].numpy().reshape(-1)
+    cases = {
+        "random": (rng.normal(size=n), rng.normal(size=n) * np.exp2(rng.integers(-60, 60, n))),
+        # pixels in [0, 1] times the bridge's conv1 weights
+        "real": (rng.integers(0, 256, n) / 255.0, rng.choice(w1, n)),
+        # products around the smallest normal float32 and below it
+        "smallest": (rng.normal(size=n) * 2.0 ** -63, rng.normal(size=n) * 2.0 ** -64),
+    }
+    for name, (a, b) in cases.items():
+        a, b = (torch.from_numpy(t.astype(np.float32)).to(cuda_device) for t in (a, b))
+        got = fused_forward._bf16_products(a, b)
+        torch.cuda.synchronize()
+        assert got.is_cuda
+        exact = a.bfloat16().double().cpu().numpy() * b.bfloat16().double().cpu().numpy()
+        assert np.array_equal(got.double().cpu().numpy(), _round_bf16(exact)), name
